@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Drive dipole_tpu_torch's main path on one NVIDIA GPU and hold every CUDA
-kernel of that path against its plain torch version.
+"""Drive dipole_tpu_torch's main paths on one NVIDIA GPU and hold every CUDA
+kernel of those paths against its plain torch version.
 
     python3 chip_smoke.py                # from the repository root, one GPU
     python3 chip_smoke.py --checks-only  # build + kernel checks, then stop
 
 Phases, one JSON line each:
   1. device     name, count, nvidia-smi name and power limit; no CUDA -> fail
-  2. build      nvcc of dipole_tpu_torch/csrc/*.cu for sm_90a; seconds,
-                ptxas registers and spills
+  2. build      nvcc of the seven dipole_tpu_torch/csrc/*.cu for sm_90a;
+                seconds, ptxas registers and spills
   3. checks     each kernel against its plain version on the card:
                 potential 1000 lattice targets x 180k sources (+ a lattice
                 point coincident with a source: exactly 0 there), tolerance
@@ -16,19 +16,42 @@ Phases, one JSON line each:
                 target (sums run in other orders); imatrix 4096 points with
                 duplicates, bit-equal; greedy row mode at 2000 and column
                 mode at 20000 points from a nonzero start, signs identical
-                and acc bit-equal
+                and acc bit-equal; the patch-pipeline kernels at quick sizes
+                and their edge cases: field (a target on a source, duplicate
+                sources; per component rtol 1e-4 + 1e-5 max|E|), group
+                (weights, duplicate points, an empty group, ids outside the
+                range; |dF| <= 1e-4 sum|I| per entry), knn (sentinel rows,
+                duplicates, cross shapes, k above the source count) and fps
+                (ragged valid counts, sentinel rows, duplicates, fewer valid
+                points than picks), knn and fps bit-equal
   4. main path  api.orient_simple(device="cuda") on a 10000-point 6-column
                 scrambled ellipsoid (matrix tier, diffuse) and a 180000-point
                 3-column ellipsoid (normal estimation + column tier); launch
                 counts reset just before each run and read just after; GT sign
                 agreement >= 0.99; each path kernel launched, no plain version
                 called on a CUDA tensor; a 2000-point cloud gives the same
-                signs on the card as on the CPU
+                signs on the card as on the CPU. Then the patch pipelines
+                with the v1 checkpoints pre_trained_tpu/dipole_{0,1,2}.pt:
+                api.orient_patches on a 10000-point metaball hand at the hand
+                demo's flags (demos/hand.sh), api.orient_large on a
+                180000-point metaball lion at the lion demo's flags
+                (demos/lion.sh), api.transfer_orientation from the oriented
+                hand to a 180000-point hand; stage seconds and GT sign
+                agreement of each; the field, group, knn and fps kernels
+                launched, no plain version called on a CUDA tensor
   5. timing     CUDA-event times of each kernel and its plain version at the
                 main path's shapes, the bound of each; there the imatrix
                 (10k) and the greedy (10k rows, 180k columns on the full
                 grid) are held bit-equal to their plain versions too. The
-                greedy is timed on both sides of its one-block threshold
+                greedy is timed on both sides of its one-block threshold.
+                The patch kernels at the main path's largest calls: field
+                10000 sources x 180000 targets (transfer), group over the
+                lion's representatives, knn and fps on the lion's first
+                forward chunk; field and group held to their plain versions,
+                knn and fps bit-equal; kNN's library yardstick is one
+                torch.topk over the precomputed distances. One PointCNN
+                forward over that chunk is timed and traced (torch.profiler:
+                device busy share, the kernels that take the most time)
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero before the
@@ -56,6 +79,11 @@ OPS_POTENTIAL = 17
 OPS_IMATRIX = 33
 OPS_GREEDY_COLUMN = 37        # the column entry + the acc update and |acc|
 OPS_GREEDY_ROW = 4            # the acc update and |acc|
+OPS_FIELD = 33                # the pair terms and both sums
+OPS_GROUP = OPS_IMATRIX + 1   # the entry and its sum
+OPS_KNN = 9                   # d2 and at least one comparison per pair
+OPS_FPS = 10                  # d2, the running minimum and the argmax
+MODELS = [ROOT / "pre_trained_tpu" / f"dipole_{i}.pt" for i in range(3)]
 
 KERNELS = {
     "dipole_potential": ("dipole_tpu_torch/csrc/potential.cu",
@@ -66,7 +94,38 @@ KERNELS = {
                     "dipole_tpu/ops/propagate.py:82"),
     "greedy_columns": ("dipole_tpu_torch/csrc/greedy.cu",
                        "dipole_tpu/ops/propagate_pallas.py:40"),
+    "dipole_field": ("dipole_tpu_torch/csrc/field.cu",
+                     "dipole_tpu/ops/fields_pallas.py:79"),
+    "dipole_group": ("dipole_tpu_torch/csrc/group.cu",
+                     "dipole_tpu/ops/fields_pallas.py:318"),
+    "knn": ("dipole_tpu_torch/csrc/knn.cu",
+            "dipole_tpu/ops/neighbors_pallas.py:77"),
+    "fps": ("dipole_tpu_torch/csrc/fps.cu",
+            "dipole_tpu/ops/neighbors_pallas.py:158"),
 }
+LIBRARY_CALLS = {"knn": "torch.topk(d2, k, largest=False) on the precomputed d2"}
+
+# metaball shapes (tools/make_shape.py's lion and a fixed hand): F = sum
+# r^2/|x-c|^2, the surface F = iso, the GT normal -grad F
+LION_BALLS = [
+    ((0.0, 0.0, 0.0), 0.50), ((0.45, 0.02, 0.0), 0.46), ((-0.45, 0.0, 0.0), 0.44),
+    ((0.85, 0.25, 0.0), 0.38), ((1.15, 0.55, 0.0), 0.30), ((0.95, 0.45, 0.0), 0.34),
+    ((0.55, -0.55, 0.22), 0.20), ((0.55, -0.55, -0.22), 0.20),
+    ((-0.60, -0.55, 0.22), 0.20), ((-0.60, -0.55, -0.22), 0.20),
+    ((0.55, -0.95, 0.22), 0.16), ((0.55, -0.95, -0.22), 0.16),
+    ((-0.60, -0.95, 0.22), 0.16), ((-0.60, -0.95, -0.22), 0.16),
+    ((-0.95, 0.15, 0.0), 0.18), ((-1.2, 0.4, 0.0), 0.13),
+]
+# palm (2 x 3 balls), wrist, four finger chains and a thumb
+HAND_BALLS = (
+    [((-0.22 + 0.22 * ix, -0.05 + 0.16 * iy, 0.0), 0.175)
+     for ix in range(3) for iy in range(2)]
+    + [((0.0, -0.30, 0.0), 0.155), ((0.0, -0.48, 0.0), 0.135)]
+    + [((-0.24 + 0.175 * f + 0.01 * (f - 1.5) * j, 0.24 + 0.095 * (j + 1),
+         -0.012 * j * j), 0.062 * (1.0 - 0.04 * j))
+       for f in range(4) for j in range(6)]
+    + [((-0.36 - 0.07 * (j + 1), -0.02 + 0.07 * (j + 1), 0.02 + 0.012 * j),
+        0.068 * (1.0 - 0.05 * j)) for j in range(4)])
 
 
 class CheckFailed(RuntimeError):
@@ -91,6 +150,45 @@ def ellipsoid(n: int, seed: int, axes=(1.0, 0.7, 0.5)) -> np.ndarray:
     nrm = v / a
     nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
     return np.concatenate([v * a, nrm], axis=1).astype(np.float32)
+
+
+def _metaball(x: np.ndarray, balls):
+    F = np.zeros(len(x))
+    G = np.zeros_like(x)
+    for c, r in balls:
+        d = x - np.asarray(c)
+        d2 = np.maximum((d * d).sum(1), 1e-12)
+        F += r * r / d2
+        G += (-2.0 * r * r / (d2 * d2))[:, None] * d
+    return F, G
+
+
+def metaball_cloud(n: int, balls, iso: float, seed: int) -> np.ndarray:
+    """(n, 6) points on the level set F = iso of a metaball field, with the
+    outward GT normal -grad F / |grad F|: points started on each ball's own
+    level sphere (balls picked by area) are projected by damped Newton steps
+    along grad F, and those that did not converge are dropped."""
+    rng = np.random.default_rng(seed)
+    c = np.array([b[0] for b in balls])
+    r = np.array([b[1] for b in balls])
+    out, have = [], 0
+    while have < n:
+        m = int(1.3 * (n - have)) + 1000
+        pick = rng.choice(len(balls), m, p=r ** 2 / (r ** 2).sum())
+        v = rng.normal(size=(m, 3))
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        x = c[pick] + v * (r[pick] / np.sqrt(iso))[:, None]
+        for _ in range(20):
+            F, G = _metaball(x, balls)
+            step = ((F - iso) / np.maximum((G * G).sum(1), 1e-12))[:, None] * G
+            size = np.maximum(np.linalg.norm(step, axis=1, keepdims=True), 1e-12)
+            x = x - step * np.minimum(1.0, 0.05 / size)
+        F, G = _metaball(x, balls)
+        ok = np.abs(F - iso) < 1e-6 * iso
+        nrm = -G[ok] / np.linalg.norm(G[ok], axis=1, keepdims=True)
+        out.append(np.concatenate([x[ok], nrm], axis=1))
+        have += int(ok.sum())
+    return np.concatenate(out)[:n].astype(np.float32)
 
 
 def scramble(pc: np.ndarray, seed: int) -> np.ndarray:
@@ -251,21 +349,150 @@ def phase_checks(cloud180: torch.Tensor, cloud10: np.ndarray) -> dict:
         require(torch.equal(ka, pa), f"{name}: acc not bit-equal")
     return errs
 
+def _per_entry(name: str, got, want, scale, rtol: float, **info) -> float:
+    """Require |got - want| <= rtol * scale entry by entry (scale 0: exact);
+    emit the check line and return the max abs difference."""
+    diff = (got - want).abs()
+    worst = float((diff / (rtol * scale).clamp_min(1e-30)).max())
+    err = float(diff.max())
+    emit({"phase": "check", "kernel": name, "rtol": rtol, "max_abs_err": err,
+          "max_err_over_tol": worst, **info})
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    require(worst <= 1.0, f"{name}: error {worst} x its tolerance")
+    return err
+
+
+def _field_scale(p: torch.Tensor) -> torch.Tensor:
+    """Per-component tolerance scale of a field: |E| plus a floor of 0.1 of
+    the largest |E| (as 1e-4 |E| + 1e-5 max|E|), for components that
+    cancel."""
+    return p.abs() + 0.1 * p.abs().max()
+
+
+def _group_scale(pts: torch.Tensor, gid: torch.Tensor, G: int) -> torch.Tensor:
+    """sum over group g of |I[i, j]|, the scale of the group kernel's
+    tolerance (its sum runs in another order than the one-hot product)."""
+    from dipole_tpu_torch.ops import fields
+
+    keep = (gid >= 0) & (gid < G)
+    onehot = torch.zeros((len(gid), G), dtype=torch.float32, device=pts.device)
+    onehot[torch.nonzero(keep)[:, 0], gid[keep]] = 1.0
+    rows = [fields.dipole_interaction_matrix_plain(pts[b:b + 1024], pts, 1e-5).abs()
+            @ onehot for b in range(0, len(pts), 1024)]
+    return torch.cat(rows, dim=0)
+
+
+def _equal(name: str, got, want, **info) -> float:
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(float(torch.where(a == b, 0.0, (a.double() - b.double()).abs()).max())
+              if a.numel() else 0.0 for a, b in zip(got, want))
+    emit({"phase": "check", "kernel": name, "bit_equal": equal,
+          "max_abs_err": err, **info})
+    require(equal, f"{name}: not bit-equal to its plain version ({info})")
+    return err
+
+
+def _knn_case(r, dev, b, nd, ns, k, nsent, self_knn):
+    src = r.normal(size=(b, ns, 3)).astype(np.float32)
+    src[:, ns // 2:ns // 2 + ns // 8] = src[:, :ns // 8]       # duplicates
+    if nsent:
+        src[:, -nsent:] = 1.0e6
+    dst = src.copy() if self_knn else r.normal(size=(b, nd, 3)).astype(np.float32)
+    dst[:, -3:] = 1.0e6
+    return torch.as_tensor(dst, device=dev), torch.as_tensor(src, device=dev)
+
+
+def _fps_case(r, dev, b, n, m):
+    pos = r.normal(size=(b, n, 3)).astype(np.float32)
+    nv = r.integers(max(1, m // 4), n + 1, b)
+    nv[0] = max(1, m // 3)                                   # fewer than m
+    pos[:, 20:30] = pos[:, :10]                              # duplicates
+    valid = np.arange(n)[None, :] < nv[:, None]
+    pos[~valid] = 1.0e6
+    starts = (r.integers(0, 1 << 30, b) % nv).astype(np.int32)
+    return (torch.as_tensor(pos, device=dev), torch.as_tensor(valid, device=dev),
+            torch.as_tensor(starts, device=dev))
+
+
+def phase_checks_patch(dev) -> dict:
+    """The patch-pipeline kernels against their plain versions at quick
+    sizes and the edge cases of tests/test_pallas.py."""
+    from dipole_tpu_torch.ops import fields, neighbors
+
+    errs = {}
+    r = np.random.default_rng(SEED + 7)
+    # field: duplicate sources, targets on and off the surface, one target
+    # on a source (its pair contributes nothing)
+    src = torch.as_tensor(ellipsoid(6000, SEED + 3), device=dev)
+    src[5500:] = src[:500]
+    tgt = ellipsoid(3000, SEED + 4)[:, :3]
+    tgt[1500:] *= 1.3
+    tgt = torch.as_tensor(tgt, device=dev)
+    tgt[0] = src[10, :3]
+    k = fields.field_grad(src, tgt)
+    p = fields.field_grad_plain(src, tgt, 1e-5)
+    errs["dipole_field"] = _per_entry("dipole_field", k, p, _field_scale(p), 1e-4,
+                                      sources=6000, targets=3000)
+
+    # group: weights, duplicate points, group 7 empty, ids outside [0, 50)
+    pts = torch.as_tensor(ellipsoid(4000, SEED + 5), device=dev)
+    pts[3800:] = pts[:200]
+    w = torch.as_tensor(r.uniform(0.1, 1.0, 4000).astype(np.float32), device=dev)
+    gid = torch.as_tensor(r.integers(0, 50, 4000), device=dev)
+    gid[gid == 7] = 8
+    gid[:30] = -1
+    gid[30:40] = 50
+    k = fields.point_group_interaction(pts, gid, 50, source_weights=w)
+    wpts = pts.clone()
+    wpts[:, 3:6] *= w[:, None]
+    p = fields.point_group_interaction_plain(wpts, gid, 50, 1e-5)
+    require(bool((k[:, 7] == 0).all()), "dipole_group: empty group not 0")
+    errs["dipole_group"] = _per_entry("dipole_group", k, p, _group_scale(wpts, gid, 50),
+                                      1e-4, points=4000, groups=50)
+
+    # knn: self with sentinel rows, cross, nearly all sentinel, k > ns
+    errs["knn"] = 0.0
+    for b, nd, ns, k_, nsent, self_knn in [(5, 512, 512, 20, 40, True),
+                                           (3, 308, 185, 16, 0, False),
+                                           (2, 130, 200, 20, 190, False),
+                                           (2, 64, 10, 16, 0, False),
+                                           (4, 1024, 1024, 20, 100, True)]:
+        dst, srcs = _knn_case(r, dev, b, nd, ns, k_, nsent, self_knn)
+        errs["knn"] = max(errs["knn"], _equal(
+            "knn", neighbors.knn_with_dist(dst, srcs, k_),
+            neighbors.knn_with_dist_plain(dst, srcs, k_),
+            shape=[b, nd, ns], k=k_, sentinel_rows=nsent))
+    errs["fps"] = 0.0
+    for b, n, m in [(8, 512, 308), (4, 308, 185), (3, 1024, 615), (2, 128, 77)]:
+        pos, valid, starts = _fps_case(r, dev, b, n, m)
+        errs["fps"] = max(errs["fps"], _equal(
+            "fps", neighbors.fps_masked_batch(pos, valid, m, starts),
+            neighbors.fps_masked_batch_plain(pos, valid, m, starts),
+            shape=[b, n], m=m))
+    return errs
+
+
+def _all_counts():
+    from dipole_tpu_torch.ops import (fields, fields_cuda, neighbors,
+                                      neighbors_cuda, propagate, propagate_cuda)
+
+    return ((fields_cuda.LAUNCHES, propagate_cuda.LAUNCHES, neighbors_cuda.LAUNCHES),
+            (fields.PLAIN_CUDA_CALLS, propagate.PLAIN_CUDA_CALLS,
+             neighbors.PLAIN_CUDA_CALLS))
+
 
 def _reset_counts():
-    from dipole_tpu_torch.ops import fields, fields_cuda, propagate, propagate_cuda
-
-    for d in (fields_cuda.LAUNCHES, propagate_cuda.LAUNCHES,
-              fields.PLAIN_CUDA_CALLS, propagate.PLAIN_CUDA_CALLS):
+    launches, plain = _all_counts()
+    for d in (*launches, *plain):
         for key in d:
             d[key] = 0
 
 
 def _read_counts():
-    from dipole_tpu_torch.ops import fields, fields_cuda, propagate, propagate_cuda
-
-    return ({**fields_cuda.LAUNCHES, **propagate_cuda.LAUNCHES},
-            {**fields.PLAIN_CUDA_CALLS, **propagate.PLAIN_CUDA_CALLS})
+    launches, plain = _all_counts()
+    return ({k: v for d in launches for k, v in d.items()},
+            {k: v for d in plain for k, v in d.items()})
 
 
 def phase_main_path(gt10: np.ndarray, gt180: np.ndarray) -> dict:
@@ -316,20 +543,6 @@ def phase_main_path(gt10: np.ndarray, gt180: np.ndarray) -> dict:
     return launches
 
 
-def _hold_equal(name: str, n: int, got, want) -> float:
-    """Bit-equality of a kernel's outputs with its plain version's at a main
-    path shape; returns the max abs difference."""
-    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-    equal = all(torch.equal(a, b) for a, b in zip(got, want))
-    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    emit({"phase": "check", "kernel": name, "n": n, "main_path_shape": True,
-          "bit_equal": equal, "max_ulp": max(max_ulp(a, b)
-                                             for a, b in zip(got, want)),
-          "max_abs_err": err})
-    require(equal, f"{name}: not bit-equal to its plain version at n={n}")
-    return err
-
-
 def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
     from dipole_tpu_torch.ops import fields, propagate, propagate_cuda
     from dipole_tpu_torch.utils.io import Transform, gen_grid
@@ -356,7 +569,7 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
     plain = fields.dipole_interaction_matrix_plain(pc10, pc10, 1e-6)
     res["dipole_imatrix"] = dict(
         shape=f"{n10} x {n10}",
-        max_abs_err=_hold_equal("dipole_imatrix", n10, I, plain),
+        max_abs_err=_equal("dipole_imatrix", I, plain, n=n10, main_path_shape=True),
         ms=cuda_ms(lambda: fields.dipole_interaction_matrix(pc10), 10, 0),
         plain_ms=cuda_ms(
             lambda: fields.dipole_interaction_matrix_plain(pc10, pc10, 1e-6), 3, 0),
@@ -369,7 +582,7 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
     plain_ms, want = timed(lambda: propagate.greedy_rows_plain(I, 0))
     res["greedy_rows"] = dict(
         shape=f"{n10} points, row mode", blocks=blocks,
-        max_abs_err=_hold_equal("greedy_rows", n10, got, want),
+        max_abs_err=_equal("greedy_rows", got, want, n=n10, main_path_shape=True),
         ms=cuda_ms(lambda: propagate_cuda.greedy_rows(I, 0), 3, 0),
         plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
     del I
@@ -384,8 +597,8 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
     # the plain column greedy at 180k runs ~45 torch ops per step, once
     plain_ms, want = timed(lambda: propagate.greedy_columns_plain(pc180, 0, 1e-6))
     res["greedy_columns"]["plain_ms"] = plain_ms
-    res["greedy_columns"]["max_abs_err"] = _hold_equal(
-        "greedy_columns", n180, got, want)
+    res["greedy_columns"]["max_abs_err"] = _equal(
+        "greedy_columns", got, want, n=n180, main_path_shape=True)
 
     # the one-block threshold: one block at 3072 points against a grid of
     # blocks at 3073, the same work but for one step
@@ -404,6 +617,200 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
     return res
 
 
+def _patch_run(label, fn, gt, path_kernels, launches):
+    """One main-path run of a patch pipeline: counts reset just before and
+    read just after, stage seconds and GT sign agreement."""
+    from dipole_tpu_torch.ops.metrics import sign_agreement
+    from dipole_tpu_torch.utils.timing import timer_factory
+
+    timer = timer_factory()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn(timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = _read_counts()
+    agree = sign_agreement(out, gt)
+    emit({"phase": "main_path", "run": label, "n": len(out), "seconds": wall,
+          "stages": timer.stages, "gt_sign_agreement": agree,
+          "launches": counts, "plain_cuda_calls": plain})
+    require(out.shape == (len(gt), 6) and bool(np.isfinite(out).all()),
+            f"{label}: bad output")
+    require(np.allclose(out[:, :3], gt[:, :3], atol=1e-4), f"{label}: positions moved")
+    for name in path_kernels:
+        require(counts[name] > 0, f"{label}: kernel {name} not launched")
+        launches[name] = launches.get(name, 0) + counts[name]
+    require(not any(plain.values()), f"{label}: plain version called on CUDA: {plain}")
+    return out, agree
+
+
+HAND_FLAGS = dict(iters=10, propagation_iters=5, number_parts=30,
+                  minimum_points_per_patch=100, curvature_threshold=0.01,
+                  diffuse=True, weighted_prop=True, estimate=True)
+LION_FLAGS = dict(iters=5, number_parts=41, minimum_points_per_patch=100, n=50)
+
+
+def phase_main_path_patches(hand10, hand180, lion, launches) -> np.ndarray:
+    """The patch pipelines with the v1 trio: orient_patches (hand demo),
+    orient_large (lion demo), transfer_orientation (hand 10k -> 180k)."""
+    from dipole_tpu_torch import api
+    from dipole_tpu_torch.ops.metrics import sign_agreement
+
+    models = [str(m) for m in MODELS]
+    hand_out, a_hand = _patch_run(
+        "hand10k_orient_patches",
+        lambda timer: api.orient_patches(hand10[:, :3].copy(), models=models,
+                                         timer=timer, device="cuda", **HAND_FLAGS),
+        hand10, ("dipole_group", "knn", "fps", "dipole_potential"), launches)
+    _, a_lion = _patch_run(
+        "lion180k_orient_large",
+        lambda timer: api.orient_large(scramble(lion, SEED + 5), models=models,
+                                       timer=timer, device="cuda", **LION_FLAGS),
+        lion, ("dipole_group", "dipole_field", "knn", "fps", "dipole_potential"),
+        launches)
+    _, a_tr = _patch_run(
+        "hand_transfer_10k_to_180k",
+        lambda timer: api.transfer_orientation(hand_out, scramble(hand180, SEED + 6),
+                                               device="cuda"),
+        hand180, ("dipole_field",), launches)
+    require(a_hand >= 0.9 and a_lion >= 0.95 and a_tr >= 0.95,
+            f"GT sign agreement too low: hand {a_hand}, lion {a_lion}, "
+            f"transfer {a_tr}")
+
+    # the card against the CPU path on a small input (one model, 2 rounds)
+    small = hand10[::5, :3].copy()
+    kw = dict(models=models[:1], iters=2, propagation_iters=1, number_parts=12,
+              minimum_points_per_patch=50, diffuse=True, weighted_prop=True,
+              estimate=True)
+    on_card = api.orient_patches(small, device="cuda", **kw)
+    on_cpu = api.orient_patches(small, device="cpu", **kw)
+    same = float(((on_card[:, 3:6] * on_cpu[:, 3:6]).sum(1) > 0).mean())
+    emit({"phase": "main_path", "run": "2k_patches_card_vs_cpu", "same_sign": same,
+          "gt_card": sign_agreement(on_card, hand10[::5]),
+          "gt_cpu": sign_agreement(on_cpu, hand10[::5])})
+    require(same >= 0.95, f"orient_patches: card and CPU disagree on "
+                          f"{1 - same:.4f} of signs")
+    return hand_out
+
+
+def phase_timing_patches(hand_out, hand180, lion, dev) -> dict:
+    """The patch kernels at the main path's largest calls."""
+    from dipole_tpu_torch.api import MAX_PATCH_SIZE
+    from dipole_tpu_torch.models import pointcnn
+    from dipole_tpu_torch.ops import fields, neighbors
+    from dipole_tpu_torch.ops.patching import divide_pc
+    from dipole_tpu_torch.utils import prng
+    from dipole_tpu_torch.utils.io import Transform
+
+    res = {}
+    # field: the transfer, 10000 oriented sources at 180000 targets
+    src = torch.as_tensor(hand_out, device=dev)
+    tgt = torch.as_tensor(hand180[:, :3].copy(), device=dev)
+    S, T = len(src), len(tgt)
+    got = fields.field_grad(src, tgt)
+    plain_ms, want = timed(lambda: fields.field_grad_plain(src, tgt, 1e-5))
+    b = bound_ms(24 * S + 12 * T + 12 * T, OPS_FIELD * S * T)
+    res["dipole_field"] = dict(
+        shape=f"{S} sources x {T} targets",
+        max_abs_err=_per_entry("dipole_field", got, want, _field_scale(want), 1e-4,
+                               main_path_shape=True, sources=S, targets=T),
+        ms=cuda_ms(lambda: fields.field_grad(src, tgt), 10, 1),
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
+    del want
+
+    # group: the lion's representatives (orient_large's patches and picks)
+    pc = Transform.trans(lion)[0]
+    patches = divide_pc(pc[:, :3], LION_FLAGS["number_parts"],
+                        min_patch=LION_FLAGS["minimum_points_per_patch"])
+    rng = np.random.default_rng(1)
+    reps = [p[rng.permutation(len(p))[:MAX_PATCH_SIZE]] for p in patches]
+    pts = torch.as_tensor(pc[np.concatenate(reps)], device=dev)
+    gid = torch.as_tensor(np.concatenate([np.full(len(r), i) for i, r in enumerate(reps)]),
+                          device=dev)
+    N, G = len(pts), len(reps)
+    got = fields.point_group_interaction(pts, gid, G)
+    plain_ms, want = timed(lambda: fields.point_group_interaction_plain(pts, gid, G, 1e-5))
+    b = bound_ms(24 * N * 2 + 8 * N + 4 * N * G, OPS_GROUP * N * N)
+    res["dipole_group"] = dict(
+        shape=f"{N} points x {G} groups",
+        max_abs_err=_per_entry("dipole_group", got, want, _group_scale(pts, gid, G),
+                               1e-4, main_path_shape=True, points=N, groups=G),
+        ms=cuda_ms(lambda: fields.point_group_interaction(pts, gid, G), 3, 0),
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
+    del got, want
+
+    # knn and fps: the first forward chunk of the lion's ensemble
+    patches = [pc[r] for r in reps]
+    nb = pointcnn._bucket(max(len(p) for p in patches))
+    pool = 0.6
+    m1, _ = pointcnn._pad_sizes(nb, pool)
+    batch, valid, _, lens = pointcnn.prepare_patch_batches(
+        patches, nb, pointcnn._forward_width(nb, pool), dev)[0]
+    _, pos1 = pointcnn._canonicalize(batch, valid)
+    st = np.zeros(len(batch), np.int32)
+    st[:len(lens)] = pointcnn.key_starts(prng.prng_key(1), lens, pool, m1)[:, 0]
+    starts = torch.as_tensor(st, device=dev)
+    B, k = len(batch), 20
+    got = neighbors.knn_with_dist(pos1, pos1, k)
+    plain_ms, want = timed(lambda: neighbors.knn_with_dist_plain(pos1, pos1, k))
+    d2 = neighbors._sq_dist(pos1[:, :, None, :], pos1[:, None, :, :])
+    b = bound_ms(12 * B * nb * 2 + 8 * B * nb * k, OPS_KNN * B * nb * nb)
+    res["knn"] = dict(
+        shape=f"{B} x {nb} x {nb}, k={k}",
+        max_abs_err=_equal("knn", got, want, main_path_shape=True, shape=[B, nb, nb]),
+        ms=cuda_ms(lambda: neighbors.knn_with_dist(pos1, pos1, k), 20, 1),
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+        library_ms=cuda_ms(lambda: torch.topk(d2, k, dim=-1, largest=False), 20, 1))
+    del d2
+    got = neighbors.fps_masked_batch(pos1, valid, m1, starts)
+    plain_ms, want = timed(lambda: neighbors.fps_masked_batch_plain(pos1, valid, m1, starts))
+    b = bound_ms(12 * B * nb + B * nb + 4 * B + 4 * B * m1,
+                 OPS_FPS * B * (m1 - 1) * nb)
+    res["fps"] = dict(
+        shape=f"{B} x {nb}, m={m1}",
+        max_abs_err=_equal("fps", got, want, main_path_shape=True, shape=[B, nb]),
+        ms=cuda_ms(lambda: neighbors.fps_masked_batch(pos1, valid, m1, starts), 20, 1),
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
+    emit({"phase": "timing", "patch_kernels": res})
+    _profile_forward(batch, valid, pointcnn.key_starts(prng.prng_key(1), lens, pool, m1),
+                     dev)
+    return res
+
+
+def _profile_forward(batch, valid, starts, dev) -> None:
+    """One PointCNN forward over the chunk, by CUDA events and under
+    torch.profiler: its time, the device's busy share and the kernels that
+    take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dipole_tpu_torch.models import pointcnn
+
+    model = pointcnn.PointCNN.from_files(MODELS[0]).to(dev)
+    st = np.zeros((len(batch), 2), np.int32)
+    st[:len(starts)] = starts
+    st = torch.as_tensor(st, device=dev)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model(batch, valid, st[:, 0], st[:, 1]), 5, 2)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(batch, valid, st[:, 0], st[:, 1])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    # the device's own events (kernels, copies), not the CPU ops that launched
+    # them, which report the same device time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    emit({"phase": "profile", "what": "one PointCNN forward",
+          "shape": list(batch.shape), "ms": ms, "profiled_wall_ms": wall_ms,
+          "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+          "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                           "calls": e.count} for e in top]})
+
+
 def main(argv) -> int:
     checks_only = "--checks-only" in argv
     info = phase_device()
@@ -417,11 +824,19 @@ def main(argv) -> int:
 
     cloud180 = torch.as_tensor(Transform.trans(gt180)[0], device=dev)
     errs = phase_checks(cloud180, gt10)
+    errs.update(phase_checks_patch(dev))
     if checks_only:
         emit({"phase": "done", "checks_only": True})
         return 0
     launches = phase_main_path(gt10, gt180)
+    t0 = time.perf_counter()
+    hand10 = metaball_cloud(10000, HAND_BALLS, 1.6, SEED + 10)
+    hand180 = metaball_cloud(180000, HAND_BALLS, 1.6, SEED + 11)
+    lion = metaball_cloud(180000, LION_BALLS, 1.35, SEED + 12)
+    emit({"phase": "shapes", "seconds": time.perf_counter() - t0})
+    hand_out = phase_main_path_patches(hand10, hand180, lion, launches)
     timing = phase_timing(gt10, gt180, dev)
+    timing.update(phase_timing_patches(hand_out, hand180, lion, dev))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -431,7 +846,9 @@ def main(argv) -> int:
                         "max_abs_err": max(errs[name], t.get("max_abs_err", 0.0)),
                         "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"], "library_ms": None,
+                        "bound_by": t["bound_by"],
+                        "library_ms": t.get("library_ms"),
+                        "library_call": LIBRARY_CALLS.get(name),
                         "shape": t["shape"]})
     emit({"kernels": kernels})
     print(info["nvidia_smi"].splitlines()[0], flush=True)

@@ -1,9 +1,12 @@
 """dipole_tpu_torch — the PyTorch/CUDA port of dipole_tpu for NVIDIA Hopper.
 
 The JAX package `dipole_tpu` is the reference; this package sits beside it
-and keeps its module paths and function names. This slice carries per-point
-propagation (`api.orient_simple` and `python -m
-dipole_tpu_torch.cli.orient_simple`) end to end.
+and keeps its module paths and function names. It carries per-point
+propagation (`api.orient_simple`, `python -m
+dipole_tpu_torch.cli.orient_simple`) and the patch pipelines with the PointCNN
+ensemble (`api.orient_patches`, `orient_large`, `transfer_orientation` and
+the CLIs `orient_pointcloud`, `orient_large`, `dipole_api`,
+`reference_orientation`) end to end.
 
 Ground rules:
   * No JAX. The package imports `torch`, never `jax`, and nothing of
@@ -21,9 +24,11 @@ Ground rules:
     tensor launches the kernel or raises.
   * Decisions match the JAX package: the greedy sends ties to the lowest
     index, flips where acc < 0, and the diffuse re-vote keeps iff
-    acc * sign > 0.
-  * No weights yet: orient_simple uses no parameters. Carrying the JAX
-    package's PointCNN parameters comes with the patch-pipeline slice.
+    acc * sign > 0; kNN and FPS select as its scans do; the ensemble's FPS
+    starts come from the same threefry keys (utils/prng.py).
+  * Weights: the PointCNN checkpoints of `pre_trained_tpu/` load into
+    `models.pointcnn.PointCNN` by their torch names, and
+    `models.pointcnn.from_numpy_params` takes the JAX package's parameters.
 """
 
 import torch

@@ -1,5 +1,5 @@
-"""In-memory orientation API — the port of dipole_tpu/api.py:147-193 and
-:609-642 for per-point propagation.
+"""In-memory orientation API — the port of dipole_tpu/api.py:139-193 and
+:223-642: per-point propagation and the patch pipelines.
 
 Arrays in, oriented (N, 6) float32 arrays out, in the ORIGINAL coordinate
 space (normalization is internal). Every function takes `device` (default
@@ -8,18 +8,29 @@ space (normalization is internal). Every function takes `device` (default
     import dipole_tpu_torch
     oriented = dipole_tpu_torch.orient(points)                 # auto method
     oriented = dipole_tpu_torch.api.orient_simple(points, device="cpu")
+    oriented = dipole_tpu_torch.api.orient_large(points, models=["m.pt"])
 """
 from __future__ import annotations
 
 import numpy as np
 
 from dipole_tpu_torch.device import resolve_device
+from dipole_tpu_torch.models.inference import (TORCH_RNG_SLICE,
+                                               ensemble_vote_patches,
+                                               load_model_from_file)
+from dipole_tpu_torch.models.pointcnn import PointCNN
 from dipole_tpu_torch.ops import fields, propagate
 from dipole_tpu_torch.ops.estimate import estimate_normals
-from dipole_tpu_torch.utils.io import Transform
+from dipole_tpu_torch.ops.patching import divide_pc, fix_n_filter
+from dipole_tpu_torch.utils import prng
+from dipole_tpu_torch.utils.io import Transform, orient_center_np
 from dipole_tpu_torch.utils.timing import timer_factory
 
-__all__ = ["orient", "orient_simple", "resolve_mesh"]
+__all__ = ["orient", "orient_simple", "orient_patches",
+           "orient_patches_consensus", "orient_large", "transfer_orientation",
+           "resolve_mesh", "MAX_PATCH_SIZE"]
+
+MAX_PATCH_SIZE = 500  # representatives per patch (reference orient_large.py:14)
 
 _MULTI_DEVICE_SLICE = ("multi-device execution (parallel/, the mesh= "
                        "argument) is not ported yet; it is a later slice of "
@@ -77,9 +88,264 @@ def orient_simple(points, diffuse: bool = False, estimate: bool = False,
     return transform.inverse(input_pc)
 
 
+def _as_models(models, dev):
+    """Checkpoint paths or loaded PointCNN modules, on `dev`."""
+    return [m.to(dev) if isinstance(m, PointCNN)
+            else load_model_from_file(m, device=dev) for m in (models or [])]
+
+
+def _check_vote_flags(fix_when: str, fix_vote: str) -> None:
+    if fix_when not in ("last", "every"):
+        raise ValueError(f"fix_when must be 'last' or 'every', got {fix_when!r}")
+    if fix_vote not in ("all", "mean"):
+        raise ValueError(f"fix_vote must be 'all' or 'mean', got {fix_vote!r}")
+
+
+def _fix_probs(fix_models, patches, sub, fix_vote: str, fps_starts: str):
+    """(probs, probs_by_model) per patch for the staged fix pass: under
+    fix_vote 'all' each fixer votes alone and a point's P(flip) is the
+    largest (every fixer must clear the margin); under 'mean' the fixers
+    vote together (one entry per patch in probs_by_model)."""
+    if fix_vote == "all":
+        per_model = [ensemble_vote_patches([m], patches, key=sub,
+                                           fps_starts=fps_starts)
+                     for m in fix_models]
+        by_model = [[pm[i][1] for pm in per_model] for i in range(len(patches))]
+        return [np.max(ps, axis=0) for ps in by_model], by_model
+    probs = [p for _f, p in ensemble_vote_patches(fix_models, patches, key=sub,
+                                                  fps_starts=fps_starts)]
+    return probs, [[p] for p in probs]
+
+
+def orient_patches(points, models=(), iters: int = 100,
+                   propagation_iters: int = 10, number_parts: int = 15,
+                   minimum_points_per_patch: int = 21,
+                   curvature_threshold: float = 0.0, diffuse: bool = False,
+                   weighted_prop: bool = False, estimate: bool = False,
+                   n: int = 30, timer=None, mesh=None,
+                   torch_rng: int | None = None, vote_starts: int = 1,
+                   fps_starts: str = "rng", vote_margin: float = 0.0,
+                   fix_models=(), fix_margin: float = 0.25,
+                   fix_when: str = "last", fix_vote: str = "all",
+                   fix_stats: dict | None = None, vote_seed: int = 1,
+                   device="cuda") -> np.ndarray:
+    """Patch pipeline with PointCNN ensemble correction (reference
+    orient_pointcloud.py:11-83, JAX api.py:223-437): voxel patches ->
+    curvature filter -> orient_center -> iterate {ensemble votes, periodic
+    patch propagation} -> staged fix pass -> final propagation -> lattice
+    sign fix. The options are the JAX package's: vote_starts, fps_starts
+    ('rng' | 'centroid'), vote_margin (flip only where P(flip) < 0.5 -
+    margin), fix_models / fix_margin / fix_when / fix_vote / fix_stats (the
+    staged per-point fix pass), vote_seed (base seed of the vote keys).
+    torch_rng (the reference's MT19937 replay) is a later slice and
+    raises."""
+    dev = resolve_device(device)
+    resolve_mesh(mesh)
+    if torch_rng is not None:
+        raise NotImplementedError(TORCH_RNG_SLICE)
+    _check_vote_flags(fix_when, fix_vote)
+    stage_timer = timer or timer_factory()
+    pc = np.asarray(points, dtype=np.float32)
+    if estimate or pc.shape[1] == 3:
+        with stage_timer("estimate unoriented normals"):
+            pc = estimate_normals(pc, max_nn=n, device=dev)
+    input_pc, transform = Transform.trans(pc)
+
+    models = _as_models(models, dev)
+    fix_models = _as_models(fix_models, dev)
+
+    with stage_timer("voxel patching"):
+        all_patches = divide_pc(input_pc[:, :3], number_parts,
+                                min_patch=minimum_points_per_patch)
+    with stage_timer("curvature filter"):
+        patch_indices = fix_n_filter(input_pc, all_patches, curvature_threshold)
+    print(f"number of patches {len(patch_indices)}")
+    with stage_timer("centroid init"):
+        for _, p in patch_indices:
+            input_pc[p] = orient_center_np(input_pc[p])
+
+    pc_probs = np.ones(len(input_pc), dtype=np.float32)
+    key = prng.prng_key(vote_seed)
+
+    def propagate_now():
+        return propagate.strongest_field_propagation_patches(
+            input_pc, patch_indices, all_patches, diffuse=diffuse,
+            weights=pc_probs if weighted_prop else None, device=dev)
+
+    def fix_pass():
+        # staged per-point fix pass: fixers flip only margin-clearing,
+        # strict-minority point sets (a majority flip is a gauge claim)
+        nonlocal key
+        if not (fix_models and patch_indices):
+            return
+        key, sub = prng.split(key, 2)
+        patches_now = [input_pc[pidx] for _, pidx in patch_indices]
+        plist, by_model = _fix_probs(fix_models, patches_now, sub, fix_vote,
+                                     fps_starts)
+        records = []
+        for i, ((_, pidx), probs) in enumerate(zip(patch_indices, plist)):
+            flip = probs < (0.5 - fix_margin)
+            guarded = bool(flip.mean() >= 0.5)
+            if fix_stats is not None:
+                records.append(dict(pidx=pidx, probs_by_model=by_model[i],
+                                    normals=patches_now[i][:, 3:6].copy(),
+                                    probs=probs, flip=flip, guarded=guarded))
+            if guarded:
+                continue
+            pc_probs[pidx[flip]] = 1 - probs[flip]
+            input_pc[pidx[flip], 3:6] *= -1
+        if fix_stats is not None:
+            fix_stats.setdefault("passes", []).append(records)
+
+    for it in range(iters):
+        with stage_timer(f"iteration {it}"):
+            if models and patch_indices:
+                key, sub = prng.split(key, 2)
+                votes = ensemble_vote_patches(
+                    models, [input_pc[pidx] for _, pidx in patch_indices],
+                    key=sub, vote_starts=vote_starts, fps_starts=fps_starts)
+                for (_, pidx), (flip, probs) in zip(patch_indices, votes):
+                    if vote_margin:
+                        flip = probs < (0.5 - vote_margin)
+                    probs = probs.copy()
+                    probs[flip] = 1 - probs[flip]
+                    pc_probs[pidx] = probs
+                    input_pc[pidx[flip], 3:6] *= -1
+            if fix_when == "every":
+                fix_pass()
+            if it % propagation_iters == 0 and (it != 0 or propagation_iters == 1):
+                with stage_timer("patch propagation"):
+                    input_pc = propagate_now()
+
+    if fix_when == "last":
+        with stage_timer("fix pass"):
+            fix_pass()
+    with stage_timer("patch propagation"):
+        input_pc = propagate_now()
+    input_pc = _sign_fix(input_pc, stage_timer, dev)
+    return transform.inverse(input_pc)
+
+
+def orient_patches_consensus(points, models=(), runs: int = 3,
+                             vote_seeds=None, **kwargs) -> np.ndarray:
+    """Consensus of runs (JAX api.py:440-468): orient_patches under `runs`
+    decorrelated vote seeds (1..runs by default), then each point keeps its
+    majority sign, each run first aligned to run 0's global gauge. An even
+    run count breaks ties with run 0's sign, as in the JAX package."""
+    if vote_seeds is None:
+        vote_seeds = list(range(1, int(runs) + 1))
+    outs = [orient_patches(points, models=models, vote_seed=s, **kwargs)
+            for s in vote_seeds]
+    base = outs[0].copy()
+    votes = np.zeros(len(base), np.int64)
+    for o in outs:
+        s = np.where((o[:, 3:6] * base[:, 3:6]).sum(-1) >= 0, 1, -1)
+        votes += s * (1 if s.sum() >= 0 else -1)
+    base[votes < 0, 3:6] *= -1
+    return base
+
+
+def orient_large(points, models=(), iters: int = 100, number_parts: int = 15,
+                 minimum_points_per_patch: int = 21,
+                 curvature_threshold: float = 0.0, estimate: bool = False,
+                 n: int = 30, seed: int = 1, timer=None, mesh=None,
+                 vote_starts: int = 1, fps_starts: str = "rng",
+                 vote_margin: float = 0.0, fix_models=(),
+                 fix_margin: float = 0.25, fix_when: str = "last",
+                 fix_vote: str = "all", vote_seed: int = 1,
+                 device="cuda") -> np.ndarray:
+    """Large clouds through <= 500 random representatives per patch
+    (reference orient_large.py:10-90, JAX api.py:471-593): normalize ->
+    (estimate normals, after normalization as in the reference) -> voxel
+    patches -> curvature filter -> orient_center -> `iters` ensemble rounds
+    on the representatives -> representative propagation (diffuse), rest
+    points re-voted by the field of the oriented representatives -> lattice
+    sign fix. Options as orient_patches."""
+    dev = resolve_device(device)
+    resolve_mesh(mesh)
+    _check_vote_flags(fix_when, fix_vote)
+    stage_timer = timer or timer_factory()
+    input_pc, transform = Transform.trans(np.asarray(points, dtype=np.float32))
+    if estimate or input_pc.shape[1] == 3:
+        with stage_timer("estimate unoriented normals"):
+            input_pc = estimate_normals(input_pc, max_nn=n, device=dev)
+
+    models = _as_models(models, dev)
+    fix_models = _as_models(fix_models, dev)
+
+    with stage_timer("voxel patching"):
+        all_patches = divide_pc(input_pc[:, :3], number_parts,
+                                min_patch=minimum_points_per_patch)
+    with stage_timer("curvature filter"):
+        patch_indices = fix_n_filter(input_pc, all_patches, curvature_threshold)
+    print(f"number of patches {len(patch_indices)}/{len(all_patches)}")
+    with stage_timer("centroid init"):
+        for _, p in patch_indices:
+            input_pc[p] = orient_center_np(input_pc[p])
+    with stage_timer("pick representatives"):
+        rng = np.random.default_rng(seed)
+        represent = []
+        for p in all_patches:
+            perm = rng.permutation(len(p))
+            represent.append((p[perm[:MAX_PATCH_SIZE]], p[perm[MAX_PATCH_SIZE:]]))
+
+    pc_probs = np.ones(len(input_pc), dtype=np.float32)
+    key = prng.prng_key(vote_seed)
+    with stage_timer("network correction"):
+        rep_sets = [represent[i][0] for i, _ in patch_indices] if models else []
+
+        def fix_pass():
+            nonlocal key
+            if not (fix_models and rep_sets):
+                return
+            key, sub = prng.split(key, 2)
+            plist, _ = _fix_probs(fix_models, [input_pc[r] for r in rep_sets],
+                                  sub, fix_vote, fps_starts)
+            for reps, probs in zip(rep_sets, plist):
+                flip = probs < (0.5 - fix_margin)
+                if flip.mean() >= 0.5:
+                    continue
+                pc_probs[reps[flip]] = 1 - probs[flip]
+                input_pc[reps[flip], 3:6] *= -1
+
+        # the reference re-votes each patch `iters` times; the patches are
+        # independent, so each round is one batched ensemble pass
+        for _ in range(iters if rep_sets else 0):
+            key, sub = prng.split(key, 2)
+            votes = ensemble_vote_patches(
+                models, [input_pc[r] for r in rep_sets], key=sub,
+                vote_starts=vote_starts, fps_starts=fps_starts)
+            for reps, (flip, probs) in zip(rep_sets, votes):
+                if vote_margin:
+                    flip = probs < (0.5 - vote_margin)
+                pc_probs[reps] = probs
+                input_pc[reps[flip], 3:6] *= -1
+            if fix_when == "every":
+                fix_pass()
+        if fix_when == "last":
+            fix_pass()
+
+    with stage_timer("dipole propagation"):
+        input_pc = propagate.strongest_field_propagation_reps(
+            input_pc, represent, diffuse=True, device=dev)
+    input_pc = _sign_fix(input_pc, stage_timer, dev)
+    return transform.inverse(input_pc)
+
+
+def transfer_orientation(reference_pc, target, estimate: bool = False,
+                         n: int = 30, device="cuda") -> np.ndarray:
+    """Orient `target` by the dipole field of an oriented reference cloud
+    (reference reference_orientation.py:8-28, JAX api.py:596-606): 3-column
+    targets take the normalized field as their normal, 6-column targets only
+    its sign. No normalization, no sign fix."""
+    dev = resolve_device(device)
+    target = np.asarray(target, dtype=np.float32)
+    if estimate:
+        target = estimate_normals(target, max_nn=n, device=dev)
+    return fields.reference_field(reference_pc, target, device=dev)
+
+
 _LATER_SLICES = {
-    "patches": "the patch-pipeline slice (orient_patches, PointCNN)",
-    "large": "the patch-pipeline slice (orient_large, PointCNN)",
     "xie": "the xie slice",
     "tree_xie": "the xie slice",
     "hoppe": "the serving slice (serve/handlers.py)",
@@ -87,11 +353,11 @@ _LATER_SLICES = {
 
 
 def orient(points, method: str = "auto", models=(), **kwargs) -> np.ndarray:
-    """One-call orientation. method: 'auto' | 'simple' (ported) | 'patches'
-    | 'large' | 'xie' | 'tree_xie' | 'hoppe' (later slices: they raise
-    NotImplementedError). 'auto' picks as the JAX package does: 'simple' for
-    clouds of up to 50k points without models, 'patches' with models,
-    'large' above 50k."""
+    """One-call orientation. method: 'auto' | 'simple' | 'patches' |
+    'large' (ported) | 'xie' | 'tree_xie' | 'hoppe' (later slices: they
+    raise NotImplementedError). 'auto' picks as the JAX package does:
+    'large' above 50k points, else 'patches' with models and 'simple'
+    without."""
     points = np.asarray(points)
     if method == "auto":
         if len(points) > 50_000:
@@ -100,6 +366,10 @@ def orient(points, method: str = "auto", models=(), **kwargs) -> np.ndarray:
             method = "patches" if models else "simple"
     if method == "simple":
         return orient_simple(points, **kwargs)
+    if method == "patches":
+        return orient_patches(points, models=models, **kwargs)
+    if method == "large":
+        return orient_large(points, models=models, **kwargs)
     if method in _LATER_SLICES:
         raise NotImplementedError(
             f"method={method!r} is not ported yet: it comes with "

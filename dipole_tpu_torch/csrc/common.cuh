@@ -10,3 +10,30 @@
 extern "C" const char* dipole_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+// One entry of the interaction matrix, I = E_s(x_t) . n_t with R = x_s - x_t:
+// the two-divide XLA formula of dipole_tpu/ops/fields.py:287-302
+// (-(3c.Rn/(safe_r2.denom) - pn/denom), denom = r.r2 + eps), term for term
+// and in the order of the plain torch version (fields.py of the port).
+// Built with -fmad=false (sqrtf and / IEEE), so a kernel that calls it
+// agrees with the plain version bit for bit. Coincident pairs and
+// non-finite entries are 0.
+__device__ __forceinline__ float dipole_pair(float sx, float sy, float sz,
+                                             float px, float py, float pz,
+                                             float tx, float ty, float tz,
+                                             float nx, float ny, float nz,
+                                             float eps) {
+  const float Rx = sx - tx;
+  const float Ry = sy - ty;
+  const float Rz = sz - tz;
+  const float r2 = Rx * Rx + Ry * Ry + Rz * Rz;
+  const bool zero = r2 == 0.f;
+  const float rr = sqrtf(r2);
+  const float denom = rr * r2 + eps;
+  const float c = px * Rx + py * Ry + pz * Rz;
+  const float Rn = nx * Rx + ny * Ry + nz * Rz;
+  const float pn = px * nx + py * ny + pz * nz;
+  const float safe_r2 = zero ? 1.f : r2;
+  const float v = -(3.f * c * Rn / (safe_r2 * denom) - pn / denom);
+  return (zero || !isfinite(v)) ? 0.f : v;
+}

@@ -16,12 +16,10 @@
 // kRows rows, so every row store of a warp is 128 contiguous bytes
 // (coalesced along j). The kRows target points are staged in shared memory.
 //
-// Arithmetic: the two-divide XLA formula of dipole_tpu/ops/fields.py:287-302
-// (-(3c.Rn/(safe_r2.denom) - pn/denom), denom = r.r2 + eps), term for term
-// and in the same order as the plain torch version, compiled with
-// -fmad=false (sqrtf and / IEEE), so kernel and plain version agree bit for
-// bit. The Pallas kernel's single-reciprocal form (fields_pallas.py:228-229)
-// differs from both in the last bits.
+// Arithmetic: common.cuh's dipole_pair, the two-divide XLA formula of
+// dipole_tpu/ops/fields.py:287-302, so kernel and plain version agree bit
+// for bit. The Pallas kernel's single-reciprocal form
+// (fields_pallas.py:228-229) differs from both in the last bits.
 
 #include "common.cuh"
 
@@ -53,21 +51,9 @@ imatrix_kernel(const float* __restrict__ tgt, int n_t,
     if (j < n_s) {
       const int rows = min(kRows, n_t - i0);
       for (int r = 0; r < rows; ++r) {
-        const float nx = t[3][r], ny = t[4][r], nz = t[5][r];
-        const float Rx = sx - t[0][r];
-        const float Ry = sy - t[1][r];
-        const float Rz = sz - t[2][r];
-        const float r2 = Rx * Rx + Ry * Ry + Rz * Rz;
-        const bool zero = r2 == 0.f;
-        const float rr = sqrtf(r2);
-        const float denom = rr * r2 + eps;
-        const float c = px * Rx + py * Ry + pz * Rz;
-        const float Rn = nx * Rx + ny * Ry + nz * Rz;
-        const float pn = px * nx + py * ny + pz * nz;
-        const float safe_r2 = zero ? 1.f : r2;
-        float v = -(3.f * c * Rn / (safe_r2 * denom) - pn / denom);
-        if (zero || !isfinite(v)) v = 0.f;
-        out[(size_t)(i0 + r) * n_s + j] = v;
+        out[(size_t)(i0 + r) * n_s + j] =
+            dipole_pair(sx, sy, sz, px, py, pz, t[0][r], t[1][r], t[2][r],
+                        t[3][r], t[4][r], t[5][r], eps);
       }
     }
     __syncthreads();

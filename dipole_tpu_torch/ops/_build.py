@@ -23,12 +23,12 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "check", "BUILD_LOG"]
+__all__ = ["SOURCES", "build_all", "library", "entry", "check", "BUILD_LOG"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("potential", "imatrix", "greedy")
+SOURCES = ("potential", "imatrix", "greedy", "field", "group", "knn", "fps")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 _NVCC_TIMEOUT_S = 600
@@ -100,6 +100,16 @@ def library(name: str) -> ctypes.CDLL:
         lib.dipole_error_string.argtypes = [ctypes.c_int]
         _libs[name] = lib
     return _libs[name]
+
+
+def entry(lib_name: str, fn_name: str, argtypes):
+    """(library, C function) of kernel library `lib_name`, the function's
+    argument types set and its return type int (a CUDA error code)."""
+    lib = library(lib_name)
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return lib, fn
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

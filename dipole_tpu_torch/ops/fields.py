@@ -1,12 +1,17 @@
-"""Dipole potential and interaction matrix — the port of
-dipole_tpu/ops/fields.py:124-227 and :287-302 (:369-397).
+"""Dipole potential, field, interaction matrix and group interaction — the
+port of dipole_tpu/ops/fields.py:107-227, :262-302 (:369-397) and
+:430-468.
 
 Physics (reference field_utils.py):
   potential  phi_t = sum_s p_s . R_ts / |R_ts|^3, R_ts = x_s - x_t, no eps;
              a coincident pair poisons the target's total, which is then
              scrubbed to 0 (field_utils.py:49-55)
+  field      E_t = -sum_s (3 (p_s . R) R / r^2 - p_s) / (r^3 + eps),
+             coincident pairs contribute nothing, non-finite components
+             of the total 0 (field_utils.py:61-116)
   matrix     I[i, j] = E_j(x_i) . n_i, zero-distance and non-finite
              entries 0
+  group      F[i, g] = sum over sources j of group g of I[i, j]
 
 Each public function here is the dispatch point for its kernel: a CPU
 tensor takes the plain torch version below, any other device goes to the
@@ -30,13 +35,18 @@ from dipole_tpu_torch.ops import fields_cuda
 from dipole_tpu_torch.utils.io import gen_grid
 
 __all__ = ["potential", "potential_plain", "measure_mean_potential",
+           "field_grad", "field_grad_plain", "reference_field",
            "dipole_interaction_matrix", "dipole_interaction_matrix_plain",
+           "point_group_interaction", "point_group_interaction_plain",
            "sqrt_rn", "PLAIN_CUDA_CALLS"]
 
-PLAIN_CUDA_CALLS = {"dipole_potential": 0, "dipole_imatrix": 0}
+PLAIN_CUDA_CALLS = {"dipole_potential": 0, "dipole_imatrix": 0,
+                    "dipole_field": 0, "dipole_group": 0}
 
 _PLAIN_BLOCK_S = 8192   # sources per tile of the plain potential
-_PLAIN_BLOCK_T = 1024   # target rows per tile of the plain matrix
+_PLAIN_BLOCK_T = 1024   # target rows per tile of the plain matrix and field
+_FIELD_BLOCK_S = 1024   # sources per tile sum of the plain field (BLOCK_S)
+_GROUP_BLOCK_S = 4096   # sources per one-hot product of the plain group
 
 
 def _count_plain(name: str, t: torch.Tensor) -> None:
@@ -93,30 +103,34 @@ def measure_mean_potential(pc, device="cuda") -> float:
     return float(torch.mean(potential(as_f32(pc, dev), grid)))
 
 
+def _imatrix_tile(t: torch.Tensor, sources: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """I (T, M) for targets t (T, 6) and sources (M, 6): the two-divide XLA
+    formula of fields.py:287-302, term for term as csrc/common.cuh."""
+    sx, sy, sz, px, py, pz = (sources[:, k] for k in range(6))
+    tx, ty, tz, nx, ny, nz = (t[:, k:k + 1] for k in range(6))
+    Rx = sx - tx
+    Ry = sy - ty
+    Rz = sz - tz
+    r2 = Rx * Rx + Ry * Ry + Rz * Rz
+    zero = r2 == 0.0
+    r = sqrt_rn(r2)
+    denom = r * r2 + eps
+    c = px * Rx + py * Ry + pz * Rz
+    Rn = nx * Rx + ny * Ry + nz * Rz
+    pn = px * nx + py * ny + pz * nz
+    safe_r2 = torch.where(zero, torch.ones_like(r2), r2)
+    I = -(3.0 * c * Rn / (safe_r2 * denom) - pn / denom)
+    return torch.where(zero | ~torch.isfinite(I), torch.zeros_like(I), I)
+
+
 def dipole_interaction_matrix_plain(targets: torch.Tensor, sources: torch.Tensor,
                                     eps: float) -> torch.Tensor:
     """Plain torch version of the interaction-matrix kernel. targets (T, 6),
     sources (M, 6) -> I (T, M)."""
     _count_plain("dipole_imatrix", sources)
-    sx, sy, sz, px, py, pz = (sources[:, k] for k in range(6))
-    rows = []
-    for b in range(0, targets.shape[0], _PLAIN_BLOCK_T):
-        t = targets[b:b + _PLAIN_BLOCK_T]
-        tx, ty, tz, nx, ny, nz = (t[:, k:k + 1] for k in range(6))
-        Rx = sx - tx
-        Ry = sy - ty
-        Rz = sz - tz
-        r2 = Rx * Rx + Ry * Ry + Rz * Rz
-        zero = r2 == 0.0
-        r = sqrt_rn(r2)
-        denom = r * r2 + eps
-        c = px * Rx + py * Ry + pz * Rz
-        Rn = nx * Rx + ny * Ry + nz * Rz
-        pn = px * nx + py * ny + pz * nz
-        safe_r2 = torch.where(zero, torch.ones_like(r2), r2)
-        I = -(3.0 * c * Rn / (safe_r2 * denom) - pn / denom)
-        I = torch.where(zero | ~torch.isfinite(I), torch.zeros_like(I), I)
-        rows.append(I)
+    rows = [_imatrix_tile(targets[b:b + _PLAIN_BLOCK_T], sources, eps)
+            for b in range(0, targets.shape[0], _PLAIN_BLOCK_T)]
     if not rows:
         return torch.zeros((0, sources.shape[0]), dtype=torch.float32,
                            device=sources.device)
@@ -132,3 +146,116 @@ def dipole_interaction_matrix(pts: torch.Tensor, eps: float = 1e-6,
     if src.device.type == "cpu":
         return dipole_interaction_matrix_plain(tgt, src, eps)
     return fields_cuda.dipole_imatrix(tgt, src, eps)
+
+
+def field_grad_plain(sources: torch.Tensor, targets: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """Plain torch version of the field kernel. sources (M, 6), targets
+    (T, 3) -> E (T, 3). The XLA tile formula of fields.py:107-121 (one
+    reciprocal per pair, term_R and term_p summed apart), one tile sum per
+    block of 1024 sources as the XLA scan, scrubbed after the total."""
+    _count_plain("dipole_field", sources)
+    E = torch.zeros((targets.shape[0], 3), dtype=torch.float32,
+                    device=targets.device)
+    for tb in range(0, targets.shape[0], _PLAIN_BLOCK_T):
+        tx, ty, tz = (targets[tb:tb + _PLAIN_BLOCK_T, k:k + 1] for k in range(3))
+        for sb in range(0, sources.shape[0], _FIELD_BLOCK_S):
+            s = sources[sb:sb + _FIELD_BLOCK_S]
+            px, py, pz = s[:, 3], s[:, 4], s[:, 5]
+            Rx = s[:, 0] - tx
+            Ry = s[:, 1] - ty
+            Rz = s[:, 2] - tz
+            r2 = Rx * Rx + Ry * Ry + Rz * Rz
+            zero = r2 == 0.0
+            r = sqrt_rn(r2)
+            denom = r * r2 + eps
+            c = px * Rx + py * Ry + pz * Rz
+            safe_r2 = torch.where(zero, torch.ones_like(r2), r2)
+            t = 1.0 / (safe_r2 * denom)
+            a = torch.where(zero, torch.zeros_like(t), 3.0 * c * t)
+            b = torch.where(zero, torch.zeros_like(t), safe_r2 * t)
+            term_R = torch.stack([(a * Rx).sum(1), (a * Ry).sum(1),
+                                  (a * Rz).sum(1)], dim=1)
+            term_p = torch.stack([(b * px).sum(1), (b * py).sum(1),
+                                  (b * pz).sum(1)], dim=1)
+            E[tb:tb + _PLAIN_BLOCK_T] += -(term_R - term_p)
+    return torch.where(torch.isfinite(E), E, torch.zeros_like(E))
+
+
+def field_grad(sources: torch.Tensor, targets: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Dipole field E (T, 3) at targets (T, >=3) from dipole sources
+    (M, >=6), float32 tensors on one device (reference field_utils.py:61-116,
+    JAX fields.py:186-202)."""
+    src = sources[:, :6].contiguous()
+    tgt = targets[:, :3].contiguous()
+    if src.device.type == "cpu":
+        return field_grad_plain(src, tgt, eps)
+    return fields_cuda.field_grad(src, tgt, eps)
+
+
+def reference_field(ref_pc, target_pc, device="cuda") -> np.ndarray:
+    """Orientation transfer from an oriented cloud (reference
+    field_utils.py:188-201, JAX fields.py:262-280): the reference's field at
+    the targets; targets without normals adopt the normalized field as their
+    normal, targets with normals only take the sign of E.n."""
+    dev = resolve_device(device)
+    ref_pc = np.asarray(ref_pc, dtype=np.float32)
+    target_pc = np.asarray(target_pc, dtype=np.float32)
+    E = field_grad(as_f32(ref_pc, dev), as_f32(target_pc, dev)).cpu().numpy()
+    if target_pc.shape[1] == 3:
+        length = np.linalg.norm(E, axis=-1)
+        nz = length != 0
+        En = E.copy()
+        En[nz] = E[nz] / length[nz, None]
+        return np.concatenate([target_pc, En], axis=1)
+    out = target_pc.copy()
+    inter = (E * out[:, 3:6]).sum(axis=-1)
+    sign = (inter >= 0).astype(np.float32) * 2 - 1
+    out[:, 3:6] *= sign[:, None]
+    return out
+
+
+def point_group_interaction_plain(pts: torch.Tensor, group_ids: torch.Tensor,
+                                  num_groups: int, eps: float) -> torch.Tensor:
+    """Plain torch version of the group kernel: the interaction matrix tile
+    by tile, summed into groups by a one-hot product as the JAX package does
+    (fields.py:431-447). pts (N, 6) are targets and sources; ids outside
+    [0, num_groups) contribute nowhere."""
+    _count_plain("dipole_group", pts)
+    n = pts.shape[0]
+    F = torch.zeros((n, num_groups), dtype=torch.float32, device=pts.device)
+    gid = group_ids.to(device=pts.device, dtype=torch.int64)
+    for sb in range(0, n, _GROUP_BLOCK_S):
+        g = gid[sb:sb + _GROUP_BLOCK_S]
+        keep = (g >= 0) & (g < num_groups)
+        onehot = torch.zeros((len(g), num_groups), dtype=torch.float32,
+                             device=pts.device)
+        onehot[torch.nonzero(keep)[:, 0], g[keep]] = 1.0
+        src = pts[sb:sb + _GROUP_BLOCK_S]
+        for tb in range(0, n, _PLAIN_BLOCK_T):
+            F[tb:tb + _PLAIN_BLOCK_T] += _imatrix_tile(
+                pts[tb:tb + _PLAIN_BLOCK_T], src, eps) @ onehot
+    return F
+
+
+def point_group_interaction(pts, group_ids, num_groups: int, eps: float = 1e-5,
+                            source_weights=None) -> torch.Tensor:
+    """F[i, g] = sum over sources j in group g of I[i, j] (JAX
+    fields.py:450-468): the core of patch propagation. pts (N, >=6) float32
+    tensor, group_ids (N,) integer tensor on its device. source_weights
+    optionally scales every point's moment, as targets and as sources
+    (weighted_prop)."""
+    pts = pts[:, :6].to(torch.float32)
+    if source_weights is not None:
+        pts = pts.clone()
+        pts[:, 3:6] *= torch.as_tensor(source_weights, dtype=torch.float32,
+                                       device=pts.device)[:, None]
+    pts = pts.contiguous()
+    gid = torch.as_tensor(group_ids, device=pts.device)
+    if num_groups == 0:
+        return torch.zeros((pts.shape[0], 0), dtype=torch.float32,
+                           device=pts.device)
+    if pts.device.type == "cpu":
+        return point_group_interaction_plain(pts, gid, num_groups, eps)
+    return fields_cuda.point_group(pts, gid, num_groups, eps)

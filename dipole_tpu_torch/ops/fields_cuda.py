@@ -1,6 +1,8 @@
 """Wrappers of the field kernels: `csrc/potential.cu` (replaces
-dipole_tpu/ops/fields_pallas.py:_potential_kernel) and `csrc/imatrix.cu`
-(replaces fields_pallas.py:_dipole_imatrix_kernel).
+dipole_tpu/ops/fields_pallas.py:_potential_kernel), `csrc/imatrix.cu`
+(fields_pallas.py:_dipole_imatrix_kernel), `csrc/field.cu`
+(fields_pallas.py:_field_kernel) and `csrc/group.cu`
+(fields_pallas.py:_group_kernel).
 
 A wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates its outputs with torch.empty, launches on the current
@@ -16,20 +18,14 @@ import torch
 
 from dipole_tpu_torch.ops import _build
 
-__all__ = ["potential", "dipole_imatrix", "LAUNCHES"]
+__all__ = ["potential", "dipole_imatrix", "field_grad", "point_group",
+           "LAUNCHES"]
 
-LAUNCHES = {"dipole_potential": 0, "dipole_imatrix": 0}
+LAUNCHES = {"dipole_potential": 0, "dipole_imatrix": 0, "dipole_field": 0,
+            "dipole_group": 0}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int
-
-
-def _entry(lib_name: str, fn_name: str, argtypes):
-    lib = _build.library(lib_name)
-    fn = getattr(lib, fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    return lib, fn
 
 
 def check_tensor(t: torch.Tensor, name: str, cols: int | None = None,
@@ -54,8 +50,8 @@ def potential(sources: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     check_tensor(targets, "targets", 3)
     if sources.device != targets.device:
         raise ValueError("sources and targets on different devices")
-    lib, chunks = _entry("potential", "dipole_potential_chunks", [_N])
-    _, fn = _entry("potential", "dipole_potential", [_P, _N, _P, _N, _P, _P, _P])
+    lib, chunks = _build.entry("potential", "dipole_potential_chunks", [_N])
+    _, fn = _build.entry("potential", "dipole_potential", [_P, _N, _P, _N, _P, _P, _P])
     m, t = sources.shape[0], targets.shape[0]
     out = torch.empty(t, dtype=torch.float32, device=sources.device)
     partial = torch.empty(max(chunks(m), 1) * t, dtype=torch.float32,
@@ -77,7 +73,7 @@ def dipole_imatrix(targets: torch.Tensor, sources: torch.Tensor,
     check_tensor(sources, "sources", 6)
     if sources.device != targets.device:
         raise ValueError("sources and targets on different devices")
-    lib, fn = _entry("imatrix", "dipole_imatrix",
+    lib, fn = _build.entry("imatrix", "dipole_imatrix",
                      [_P, _N, _P, _N, ctypes.c_float, _P, _P])
     t, m = targets.shape[0], sources.shape[0]
     out = torch.empty((t, m), dtype=torch.float32, device=sources.device)
@@ -88,3 +84,61 @@ def dipole_imatrix(targets: torch.Tensor, sources: torch.Tensor,
     _build.check(lib, err, "dipole_imatrix")
     LAUNCHES["dipole_imatrix"] += 1
     return out
+
+
+def field_grad(sources: torch.Tensor, targets: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """E (T, 3) at targets (T, 3) from dipole sources (M, 6), non-finite
+    components scrubbed to 0 — on the card, by csrc/field.cu."""
+    check_tensor(sources, "sources", 6)
+    check_tensor(targets, "targets", 3)
+    if sources.device != targets.device:
+        raise ValueError("sources and targets on different devices")
+    lib, chunks = _build.entry("field", "dipole_field_chunks", [_N])
+    _, fn = _build.entry("field", "dipole_field",
+                   [_P, _N, _P, _N, ctypes.c_float, _P, _P, _P])
+    m, t = sources.shape[0], targets.shape[0]
+    out = torch.empty((t, 3), dtype=torch.float32, device=sources.device)
+    partial = torch.empty(max(chunks(m), 1) * t * 3, dtype=torch.float32,
+                          device=sources.device)
+    with torch.cuda.device(sources.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(sources.data_ptr(), m, targets.data_ptr(), t, float(eps),
+                 partial.data_ptr(), out.data_ptr(), stream)
+    _build.check(lib, err, "dipole_field")
+    LAUNCHES["dipole_field"] += 1
+    return out
+
+
+def point_group(pts: torch.Tensor, group_ids: torch.Tensor, num_groups: int,
+                eps: float) -> torch.Tensor:
+    """F (N, G), F[i, g] = sum over j with group_ids[j] == g of I[i, j], from
+    points (N, 6) that are both targets and sources; ids outside [0, G)
+    contribute nowhere — on the card, by csrc/group.cu. The kernel writes
+    F transposed; the result is the (N, G) view of that (G, N) buffer."""
+    check_tensor(pts, "pts", 6)
+    if (not isinstance(group_ids, torch.Tensor) or group_ids.device != pts.device
+            or group_ids.shape != pts.shape[:1]):
+        raise ValueError("group_ids: expected one id per point, on the "
+                         "points' device")
+    if not 0 < num_groups < 2**31:
+        raise ValueError(f"num_groups {num_groups} out of range")
+    lib, fn = _build.entry("group", "dipole_group",
+                     [_P, _N, _P, _P, _N, ctypes.c_float, _P, _P])
+    gid = group_ids.to(torch.int64)
+    keep = (gid >= 0) & (gid < num_groups)
+    order = torch.argsort(torch.where(keep, gid, num_groups), stable=True)
+    n_src = int(keep.sum())
+    src = pts[order[:n_src]].contiguous()
+    counts = torch.bincount(gid[keep], minlength=num_groups)
+    offsets = torch.zeros(num_groups + 1, dtype=torch.int32, device=pts.device)
+    offsets[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    n = pts.shape[0]
+    out_t = torch.empty((num_groups, n), dtype=torch.float32, device=pts.device)
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(pts.data_ptr(), n, src.data_ptr(), offsets.data_ptr(),
+                 num_groups, float(eps), out_t.data_ptr(), stream)
+    _build.check(lib, err, "dipole_group")
+    LAUNCHES["dipole_group"] += 1
+    return out_t.t()

@@ -1,0 +1,83 @@
+"""Wrappers of the PointCNN search kernels: `csrc/knn.cu` (replaces
+dipole_tpu/ops/neighbors_pallas.py:_knn_kernel) and `csrc/fps.cu`
+(neighbors_pallas.py:_fps_batch_kernel).
+
+A wrapper takes CUDA tensors only: it checks device, dtype, shape and
+contiguity, allocates its outputs with torch.empty, launches on the current
+stream, raises when the launch returns a CUDA error, and adds one to its
+count in LAUNCHES. The plain torch versions (and the CPU dispatch) live in
+ops/neighbors.py. Both kernels are bit-equal to them (-fmad=false).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dipole_tpu_torch.ops import _build
+from dipole_tpu_torch.ops.fields_cuda import check_tensor
+
+__all__ = ["knn_with_dist", "fps_masked_batch", "LAUNCHES", "MAX_K"]
+
+LAUNCHES = {"knn": 0, "fps": 0}
+MAX_K = 32
+
+_P = ctypes.c_void_p
+_N = ctypes.c_int
+
+
+def knn_with_dist(dst: torch.Tensor, src: torch.Tensor, k: int):
+    """(idx int32, d2 float32), each (B, Nd, k): the k nearest of the Ns
+    sources of each batch for every query, ties to the lowest index — on the
+    card, by csrc/knn.cu. dst (B, Nd, 3), src (B, Ns, 3)."""
+    check_tensor(dst, "dst", 3, ndim=3)
+    check_tensor(src, "src", 3, ndim=3)
+    if src.device != dst.device or src.shape[0] != dst.shape[0]:
+        raise ValueError("dst and src: expected one batch on one device")
+    lib, max_src = _build.entry("knn", "dipole_knn_max_sources", [])
+    b, nd, ns = dst.shape[0], dst.shape[1], src.shape[1]
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"k must be in (0, {MAX_K}]: {k}")
+    if not 0 < ns <= max_src() or b > 65535:
+        raise ValueError(f"knn kernel takes 1..{max_src()} sources and up to "
+                         f"65535 batches, got {ns} and {b}")
+    _, fn = _build.entry("knn", "dipole_knn", [_P, _N, _P, _N, _N, _N, _P, _P, _P])
+    idx = torch.empty((b, nd, k), dtype=torch.int32, device=dst.device)
+    d2 = torch.empty((b, nd, k), dtype=torch.float32, device=dst.device)
+    with torch.cuda.device(dst.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(dst.data_ptr(), nd, src.data_ptr(), ns, b, int(k),
+                 idx.data_ptr(), d2.data_ptr(), stream)
+    _build.check(lib, err, "dipole_knn")
+    LAUNCHES["knn"] += 1
+    return idx, d2
+
+
+def fps_masked_batch(pos: torch.Tensor, valid: torch.Tensor, m: int,
+                     starts: torch.Tensor) -> torch.Tensor:
+    """(B, m) int32 farthest-point selections of each batch row over its
+    valid points, from starts (B,) — on the card, by csrc/fps.cu."""
+    check_tensor(pos, "pos", 3, ndim=3)
+    b, n = pos.shape[0], pos.shape[1]
+    if (valid.dtype != torch.bool or valid.shape != (b, n)
+            or valid.device != pos.device or not valid.is_contiguous()):
+        raise ValueError("valid: expected a contiguous (B, N) bool tensor on "
+                         "the positions' device")
+    if (starts.dtype != torch.int32 or starts.shape != (b,)
+            or starts.device != pos.device or not starts.is_contiguous()):
+        raise ValueError("starts: expected a contiguous (B,) int32 tensor on "
+                         "the positions' device")
+    lib, max_pts = _build.entry("fps", "dipole_fps_max_points", [])
+    if not 0 < n <= max_pts():
+        raise ValueError(f"fps kernel takes 1..{max_pts()} points, got {n}")
+    if b and not bool(((starts >= 0) & (starts < n)).all()):
+        raise ValueError(f"starts outside [0, {n})")
+    _, fn = _build.entry("fps", "dipole_fps", [_P, _P, _N, _N, _N, _P, _P, _P])
+    out = torch.empty((b, m), dtype=torch.int32, device=pos.device)
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(pos.data_ptr(), valid.data_ptr(), b, n, int(m),
+                 starts.data_ptr(), out.data_ptr(), stream)
+    _build.check(lib, err, "dipole_fps")
+    LAUNCHES["fps"] += 1
+    return out

@@ -1,5 +1,5 @@
-"""Per-point strongest-field greedy propagation — the port of
-dipole_tpu/ops/propagate.py:61-209 and :299-315.
+"""Strongest-field greedy propagation, per point and per patch — the port
+of dipole_tpu/ops/propagate.py:61-209, :299-315 and :322-502.
 
 Every propagation variant is linear in each source's sign, so the greedy
 runs over an interaction accumulator: visiting point c adds s_c * I[:, c].
@@ -16,6 +16,12 @@ raises. The ceiling is the JAX package's 2^24 points on every device.
 Decisions replicate the JAX package: ties go to the lowest index
 (torch.argmax returns the first maximum), a step flips when acc < 0, and the
 diffuse re-vote keeps a sign iff acc * sign > 0.
+
+Patch propagation (strongest_field_propagation_patches / _reps) runs the
+same greedy over patches: the pair work is the group interaction F[i, q]
+(fields.point_group_interaction, csrc/group.cu on the card), the patch-patch
+weights W = F summed over each patch's targets, and the P-step greedy over W
+runs on the host in float64 as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ from dipole_tpu_torch.device import as_f32, resolve_device
 from dipole_tpu_torch.ops import fields, propagate_cuda
 
 __all__ = ["greedy_sign_sequence", "strongest_field_propagation_points",
+           "strongest_field_propagation_patches",
+           "strongest_field_propagation_reps",
            "greedy_rows_plain", "greedy_columns_plain", "dipole_column",
            "MATRIX_LIMIT", "MAX_POINTS", "PLAIN_CUDA_CALLS"]
 
@@ -136,4 +144,159 @@ def strongest_field_propagation_points(pts, diffuse: bool = False,
         sign = sign * vote
     out = pts.copy()
     out[:, 3:6] *= sign[:, None]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Patch-level greedy propagation
+# ---------------------------------------------------------------------------
+
+def _greedy_patch_signs(W: np.ndarray, start: int) -> np.ndarray:
+    """Host-side greedy loop over the patch-patch weight matrix (P is small),
+    in float64 (JAX propagate.py:322-337)."""
+    P = W.shape[0]
+    sign = np.zeros(P, dtype=np.float64)
+    visited = np.zeros(P, dtype=bool)
+    sign[start] = 1.0
+    visited[start] = True
+    acc = W[:, start].astype(np.float64).copy()
+    for _ in range(P - 1):
+        masked = np.where(visited, -np.inf, np.abs(acc))
+        c = int(masked.argmax())
+        s = -1.0 if acc[c] < 0 else 1.0
+        sign[c] = s
+        visited[c] = True
+        acc += s * W[:, c]
+    return sign.astype(np.float32)
+
+
+def _flattest_patch(pts: np.ndarray, patch_list) -> int:
+    """Seed = patch with the smallest |lambda_0| (PCA), reference
+    field_utils.py:303-306."""
+    e0 = []
+    for idx in patch_list:
+        x = pts[np.asarray(idx), :3].astype(np.float64)
+        x = x - x.mean(axis=0)
+        cov = x.T @ x / x.shape[0]
+        w = np.linalg.eigvalsh(cov)
+        e0.append(abs(w[0]))
+    return int(np.argmin(e0))
+
+
+def _patch_fields(work: np.ndarray, seg: np.ndarray, P: int, dev):
+    """(F, W, seg tensor): the group interaction F[i, q] of the weighted
+    points (N, 6) on `dev`, and the patch-patch weights W[p, q] = sum of
+    F[i, q] over the points i of patch p (a one-hot product, the same sum on
+    every run) as a float64 host array."""
+    seg_t = torch.as_tensor(seg, dtype=torch.int64, device=dev)
+    F = fields.point_group_interaction(as_f32(work, dev), seg_t, P, eps=1e-5)
+    onehot = torch.zeros((len(seg), P), dtype=torch.float32, device=dev)
+    onehot[torch.arange(len(seg), device=dev), seg_t] = 1.0
+    W = (onehot.t() @ F).cpu().numpy()
+    return F, W, seg_t
+
+
+def _diffuse_acc(F: torch.Tensor, seg_t: torch.Tensor, sign: np.ndarray):
+    """Accumulated E.n per point from every other patch, under the patch
+    signs: F @ sign minus the own-patch column (the reference's diffuse
+    spreading skips the emitting patch, field_utils.py:256-261, 326-331)."""
+    sign_t = torch.as_tensor(sign, dtype=torch.float32, device=F.device)
+    own = F[torch.arange(F.shape[0], device=F.device), seg_t]
+    return (F @ sign_t - own * sign_t[seg_t]).cpu().numpy()
+
+
+def strongest_field_propagation_patches(pts, filtered_patches, all_patches,
+                                        diffuse: bool = False, weights=None,
+                                        device="cuda") -> np.ndarray:
+    """Patch-level greedy propagation (reference field_utils.py:286-348, JAX
+    propagate.py:365-422). pts (N, 6); all_patches: index arrays covering
+    every point; filtered_patches: (patch_id, index array) pairs whose points
+    get the diffuse per-point re-vote; weights: optional per-point confidence,
+    clamped to [0.1, 1], scaling the normals during propagation
+    (weighted_prop). Returns a new oriented (N, 6) numpy array."""
+    dev = resolve_device(device)
+    pts = np.asarray(pts, dtype=np.float32)
+    n = pts.shape[0]
+    P = len(all_patches)
+    if P == 0:
+        return pts.copy()
+    seg = np.zeros(n, dtype=np.int32)
+    for p, idx in enumerate(all_patches):
+        seg[np.asarray(idx)] = p
+    work = pts.copy()
+    if weights is not None:
+        work[:, 3:6] *= np.clip(np.asarray(weights, np.float32), 0.1, 1.0)[:, None]
+
+    F, W, seg_t = _patch_fields(work, seg, P, dev)
+    sign = _greedy_patch_signs(W, _flattest_patch(pts, all_patches))
+
+    total = sign[seg].copy()                             # per-point sign
+    if diffuse:
+        acc = _diffuse_acc(F, seg_t, sign)
+        for _, idx in filtered_patches:
+            idx = np.asarray(idx)
+            vote = np.where(acc[idx] * total[idx] > 0, 1.0, -1.0).astype(np.float32)
+            total[idx] = total[idx] * vote
+
+    out = pts.copy()
+    out[:, 3:6] *= total[:, None]
+    return out
+
+
+def strongest_field_propagation_reps(pts, reps, diffuse: bool = False,
+                                     weights=None, device="cuda") -> np.ndarray:
+    """Representative-point propagation for large clouds (reference
+    field_utils.py:207-282, JAX propagate.py:425-502): the greedy runs on
+    the representatives of each patch (reps: (rep index array, rest index
+    array) per patch); rest points inherit their patch's sign, then each is
+    re-voted by the field of all oriented representatives (fields.field_grad,
+    csrc/field.cu on the card)."""
+    dev = resolve_device(device)
+    pts = np.asarray(pts, dtype=np.float32)
+    n = pts.shape[0]
+    P = len(reps)
+    if P == 0:
+        return pts.copy()
+    work = pts.copy()
+    if weights is not None:
+        work[:, 3:6] *= np.clip(np.asarray(weights, np.float32), 0.1, 1.0)[:, None]
+
+    rep_concat = np.concatenate([np.asarray(r) for r, _ in reps])
+    rep_seg = np.concatenate(
+        [np.full(len(np.asarray(r)), p, np.int32) for p, (r, _) in enumerate(reps)])
+    F, W, seg_t = _patch_fields(work[rep_concat], rep_seg, P, dev)
+    sign_patch = _greedy_patch_signs(
+        W, _flattest_patch(work, [np.asarray(r) for r, _ in reps]))
+
+    total = np.ones(n, dtype=np.float32)
+    for p, (rep, rest) in enumerate(reps):
+        total[np.asarray(rep)] = sign_patch[p]
+        rest = np.asarray(rest)
+        if rest.size:
+            total[rest] = sign_patch[p]
+
+    if diffuse:
+        acc = _diffuse_acc(F, seg_t, sign_patch)
+        cur = total[rep_concat]
+        vote = np.where(acc * cur > 0, 1.0, -1.0).astype(np.float32)
+        total[rep_concat] = cur * vote
+    del F
+
+    # orient every non-rep point by the field of the oriented reps
+    # (reference field_utils.py:273-276)
+    rest_concat = np.concatenate(
+        [np.asarray(rest) for _, rest in reps if len(np.asarray(rest))]
+        or [np.zeros(0, np.int64)]).astype(np.int64)
+    if rest_concat.size:
+        srcs = work[rep_concat].copy()
+        srcs[:, 3:6] *= total[rep_concat][:, None]
+        E = fields.field_grad(as_f32(srcs, dev),
+                              as_f32(work[rest_concat, :3], dev)).cpu().numpy()
+        cur_n = work[rest_concat, 3:6] * total[rest_concat][:, None]
+        inter = (E * cur_n).sum(-1)
+        vote = np.where(inter > 0, 1.0, -1.0).astype(np.float32)
+        total[rest_concat] = total[rest_concat] * vote
+
+    out = pts.copy()
+    out[:, 3:6] *= total[:, None]
     return out

@@ -67,13 +67,24 @@ def test_default_device_without_gpu_raises(monkeypatch):
         dipole_tpu_torch.orient(pc)
 
 
-def test_orient_dispatch():
+def test_orient_dispatch(monkeypatch):
     gt = make_sphere(250, seed=9)
     out = dipole_tpu_torch.orient(scramble_signs(gt, seed=10)[0], device="cpu")
     assert sign_agreement(out, gt) == 1.0
-    with pytest.raises(NotImplementedError, match="patch-pipeline"):
-        api.orient(np.zeros((50_001, 6), np.float32))
-    for method in ("patches", "xie", "tree_xie", "hoppe"):
+    # 'auto' takes 'large' above 50k points and 'patches' with models
+    seen = []
+    monkeypatch.setattr(api, "orient_large", lambda p, **kw: seen.append("large"))
+    monkeypatch.setattr(api, "orient_patches", lambda p, **kw: seen.append("patches"))
+    api.orient(np.zeros((50_001, 6), np.float32))
+    api.orient(gt, models=["m.pt"])
+    api.orient(gt, method="patches")
+    assert seen == ["large", "patches", "patches"]
+    monkeypatch.undo()
+    out = api.orient(scramble_signs(gt, seed=10)[0], method="patches",
+                     number_parts=4, minimum_points_per_patch=20, iters=1,
+                     device="cpu")
+    assert sign_agreement(out, gt) == 1.0
+    for method in ("xie", "tree_xie", "hoppe"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             api.orient(gt, method=method)
     with pytest.raises(ValueError, match="unknown method"):

@@ -14,9 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from pathlib import Path
+
 from dipole_tpu_torch import api
-from dipole_tpu_torch.ops import estimate, fields, fields_cuda, propagate, propagate_cuda
+from dipole_tpu_torch.ops import (estimate, fields, fields_cuda, neighbors,
+                                  neighbors_cuda, propagate, propagate_cuda)
 from dipole_tpu_torch.utils.io import gen_grid
+
+CKPT = str(Path(__file__).resolve().parent.parent / "pre_trained_tpu" / "dipole_0.pt")
 
 pytestmark = pytest.mark.gpu
 
@@ -106,7 +111,8 @@ def test_main_path_takes_kernels_only(cuda_device):
                    fields.PLAIN_CUDA_CALLS, propagate.PLAIN_CUDA_CALLS):
         counts.update({k: 0 for k in counts})
     api.orient_simple(sphere(500, 6), device=cuda_device)
-    assert fields_cuda.LAUNCHES == {"dipole_potential": 1, "dipole_imatrix": 1}
+    assert fields_cuda.LAUNCHES == {"dipole_potential": 1, "dipole_imatrix": 1,
+                                    "dipole_field": 0, "dipole_group": 0}
     assert propagate_cuda.LAUNCHES == {"greedy_rows": 1, "greedy_columns": 0}
     assert not any(fields.PLAIN_CUDA_CALLS.values())
     assert not any(propagate.PLAIN_CUDA_CALLS.values())
@@ -132,3 +138,108 @@ def test_orient_simple_on_card_matches_cpu(cuda_device, cols):
     # 6 columns: the same matrix bits, the same decisions; 3 columns: the
     # PCA normals may differ in the last bits between devices
     assert same == 1.0 if cols == 6 else same >= 0.999
+
+
+@pytest.mark.parametrize("n_src,n_tgt", [(1, 1), (2047, 129), (2049, 4000),
+                                         (9000, 300)])
+def test_field_kernel_matches_plain(cuda_device, n_src, n_tgt):
+    src = torch.as_tensor(sphere(n_src, 10), device=cuda_device)
+    tgt = torch.as_tensor(sphere(n_tgt, 11)[:, :3] * 1.2, device=cuda_device)
+    tgt[0] = src[0, :3]                          # a target on a source
+    k = fields.field_grad(src, tgt)
+    p = fields.field_grad_plain(src, tgt, 1e-5)
+    # sums in other orders: rtol 1e-4 per component, plus 1e-5 of max|E|
+    torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-5 * float(p.abs().max()) + 1e-30)
+    assert bool(torch.isfinite(k).all())
+
+
+@pytest.mark.parametrize("n,G", [(1, 1), (129, 3), (3000, 40)])
+def test_group_kernel_matches_plain(cuda_device, n, G):
+    pts = torch.as_tensor(sphere(n, 12), device=cuda_device)
+    if n > 100:
+        pts[n - 50:] = pts[:50]                  # coincident pairs
+    r = np.random.default_rng(n)
+    gid = torch.as_tensor(r.integers(-1, G + 1, n), device=cuda_device)
+    w = torch.as_tensor(r.uniform(0.1, 1.0, n).astype(np.float32), device=cuda_device)
+    k = fields.point_group_interaction(pts, gid, G, source_weights=w)
+    wp = pts.clone()
+    wp[:, 3:6] *= w[:, None]
+    p = fields.point_group_interaction_plain(wp, gid, G, 1e-5)
+    I = fields.dipole_interaction_matrix_plain(wp, wp, 1e-5).abs()
+    keep = (gid >= 0) & (gid < G)
+    onehot = torch.zeros((n, G), device=cuda_device)
+    onehot[torch.nonzero(keep)[:, 0], gid[keep]] = 1.0
+    # the one-hot product sums in another order: 1e-4 of sum |I| per entry
+    assert bool(((k - p).abs() <= 1e-4 * (I @ onehot)).all())
+
+
+@pytest.mark.parametrize("b,nd,ns,k,nsent", [(1, 1, 1, 1, 0), (3, 185, 308, 16, 10),
+                                             (2, 512, 512, 20, 40), (2, 64, 10, 16, 0),
+                                             (1, 33, 2048, 32, 0)])
+def test_knn_kernel_is_bit_equal(cuda_device, b, nd, ns, k, nsent):
+    r = np.random.default_rng(nd + ns)
+    src = r.normal(size=(b, ns, 3)).astype(np.float32)
+    src[:, ns // 2:ns // 2 + ns // 8] = src[:, :ns // 8]
+    if nsent:
+        src[:, -nsent:] = 1.0e6
+    dst = r.normal(size=(b, nd, 3)).astype(np.float32)
+    dst[:, :min(nd, ns)] = src[:, :min(nd, ns)]
+    dst, src = torch.as_tensor(dst, device=cuda_device), torch.as_tensor(src, device=cuda_device)
+    got = neighbors.knn_with_dist(dst, src, k)
+    want = neighbors.knn_with_dist_plain(dst, src, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 1, 1), (5, 129, 78), (3, 1024, 615), (2, 8192, 40)])
+def test_fps_kernel_is_bit_equal(cuda_device, b, n, m):
+    r = np.random.default_rng(n + m)
+    pos = r.normal(size=(b, n, 3)).astype(np.float32)
+    nv = r.integers(1, n + 1, b)
+    valid = np.arange(n)[None, :] < nv[:, None]
+    pos[~valid] = 1.0e6
+    starts = (r.integers(0, 1 << 30, b) % nv).astype(np.int32)
+    args = (torch.as_tensor(pos, device=cuda_device),
+            torch.as_tensor(valid, device=cuda_device), m,
+            torch.as_tensor(starts, device=cuda_device))
+    assert torch.equal(neighbors.fps_masked_batch(*args),
+                       neighbors.fps_masked_batch_plain(*args))
+
+
+def test_patch_wrappers_check_their_inputs(cuda_device):
+    pos = torch.zeros((2, 16, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="k must be"):
+        neighbors_cuda.knn_with_dist(pos, pos, 33)
+    with pytest.raises(ValueError, match="sources"):
+        neighbors_cuda.knn_with_dist(pos, torch.zeros((2, 9000, 3), device=cuda_device), 4)
+    valid = torch.ones((2, 16), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="starts"):
+        neighbors_cuda.fps_masked_batch(
+            pos, valid, 4, torch.tensor([0, 16], dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError, match="group_ids"):
+        fields_cuda.point_group(torch.zeros((4, 6), device=cuda_device),
+                                torch.zeros(3, dtype=torch.int64, device=cuda_device), 2, 1e-5)
+
+
+def test_patch_pipelines_take_kernels_only(cuda_device):
+    counts = (fields_cuda.LAUNCHES, neighbors_cuda.LAUNCHES,
+              fields.PLAIN_CUDA_CALLS, neighbors.PLAIN_CUDA_CALLS)
+    for c in counts:
+        c.update({k: 0 for k in c})
+    pc = sphere(1500, 13)
+    kw = dict(models=[CKPT], number_parts=5, minimum_points_per_patch=40, iters=1)
+    api.orient_patches(pc, propagation_iters=1, device=cuda_device, **kw)
+    api.orient_large(pc, device=cuda_device, **{**kw, "number_parts": 3})
+    assert fields_cuda.LAUNCHES["dipole_group"] >= 3
+    assert fields_cuda.LAUNCHES["dipole_field"] >= 1
+    assert neighbors_cuda.LAUNCHES["knn"] >= 5 and neighbors_cuda.LAUNCHES["fps"] >= 2
+    assert not any(fields.PLAIN_CUDA_CALLS.values())
+    assert not any(neighbors.PLAIN_CUDA_CALLS.values())
+
+
+def test_orient_patches_on_card_near_cpu(cuda_device):
+    pc = sphere(1500, 14)
+    kw = dict(models=[CKPT], number_parts=5, minimum_points_per_patch=40, iters=2,
+              propagation_iters=1, diffuse=True, weighted_prop=True)
+    got = api.orient_patches(pc, device=cuda_device, **kw)
+    want = api.orient_patches(pc, device="cpu", **kw)
+    assert ((got[:, 3:] * want[:, 3:]).sum(1) > 0).mean() >= 0.99

@@ -14,9 +14,16 @@ import sys
 import dipole_tpu_torch
 import dipole_tpu_torch.api
 import dipole_tpu_torch.cli.orient_simple
+import dipole_tpu_torch.cli.orient_pointcloud, dipole_tpu_torch.cli.orient_large
+import dipole_tpu_torch.cli.dipole_api, dipole_tpu_torch.cli.reference_orientation
 import dipole_tpu_torch.ops.estimate, dipole_tpu_torch.ops.fields
 import dipole_tpu_torch.ops.propagate, dipole_tpu_torch.ops.metrics
+import dipole_tpu_torch.ops.patching, dipole_tpu_torch.ops.neighbors
+import dipole_tpu_torch.ops.neighbors_cuda
+import dipole_tpu_torch.models.checkpoints, dipole_tpu_torch.models.pointcnn
+import dipole_tpu_torch.models.inference
 import dipole_tpu_torch.native, dipole_tpu_torch.utils.config
+import dipole_tpu_torch.utils.prng
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "dipole_tpu" or m.startswith("dipole_tpu.")]

@@ -1,0 +1,105 @@
+"""The port's plain kNN and FPS (dipole_tpu_torch.ops.neighbors) against
+dipole_tpu: kNN against the Pallas kernel in interpret mode and against the
+k-step scan of the PointCNN forward, FPS against the vmapped _fps_masked.
+
+The JAX package on the CPU may contract a multiply and an add into an FMA,
+which moves d2 by an ulp and can swap near-ties (tests/test_pallas.py:204):
+kNN selections are asserted tie-equivalent, d2 to rtol 2e-6. FPS decisions
+are identical on these inputs."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from dipole_tpu.models.pointcnn import _fps_masked
+from dipole_tpu.ops.neighbors_pallas import knn_with_dist_pallas
+from dipole_tpu_torch.ops import neighbors
+
+
+def _scan(dst, src, k):
+    """The reference k-step argmin scan (pointcnn._interpolate)."""
+    d2 = jnp.sum((src[None, :, :] - dst[:, None, :]) ** 2, axis=-1)
+    rows = jnp.arange(dst.shape[0])
+
+    def step(dd, _):
+        j = jnp.argmin(dd, axis=1)
+        v = dd[rows, j]
+        return dd.at[rows, j].set(jnp.inf), (j, v)
+
+    _, (idx, d) = jax.lax.scan(step, d2, None, length=k)
+    return np.moveaxis(np.asarray(idx), 0, 1), np.moveaxis(np.asarray(d), 0, 1)
+
+
+def _assert_tie_equivalent(idx, d2, idx_ref, d2_ref, ns):
+    assert int(idx.max()) < ns
+    np.testing.assert_allclose(d2, d2_ref, rtol=2e-6, atol=0)
+    diff = idx != idx_ref
+    if diff.any():
+        assert diff.mean() < 0.02
+
+
+@pytest.mark.parametrize("nd,ns,k,nsent", [
+    (512, 512, 16, 0),
+    (308, 308, 20, 40),
+    (185, 512, 16, 10),
+    (130, 200, 20, 190),
+    (308, 308, 20, 8),
+])
+def test_plain_knn_matches_pallas_and_scan(nd, ns, k, nsent):
+    r = np.random.default_rng(nd + ns + k)
+    dst = r.normal(size=(nd, 3)).astype(np.float32)
+    src = r.normal(size=(ns, 3)).astype(np.float32)
+    if nsent:
+        src[-nsent:] = 1.0e6
+    dst[-3:] = 1.0e6
+    idx, d2 = neighbors.knn_with_dist(torch.from_numpy(dst[None]),
+                                      torch.from_numpy(src[None]), k)
+    idx, d2 = idx[0].numpy(), d2[0].numpy()
+    assert idx.dtype == np.int32 and idx.shape == (nd, k)
+    with pltpu.force_tpu_interpret_mode():
+        ip, dp = knn_with_dist_pallas(dst, src, k, interpret=True)
+    _assert_tie_equivalent(idx, d2, np.asarray(ip), np.asarray(dp), ns)
+    _assert_tie_equivalent(idx, d2, *_scan(dst, src, k), ns)
+
+
+def test_plain_knn_batched_rows_independent_and_k_above_sources():
+    r = np.random.default_rng(3)
+    pos = r.normal(size=(3, 200, 3)).astype(np.float32)
+    pos[:, 100:120] = pos[:, :20]                     # exact ties at d2 = 0
+    idx, d2 = neighbors.knn_with_dist(torch.from_numpy(pos), torch.from_numpy(pos), 20)
+    for b in range(3):
+        one = neighbors.knn_with_dist(torch.from_numpy(pos[b:b + 1]),
+                                      torch.from_numpy(pos[b:b + 1]), 20)
+        assert torch.equal(idx[b], one[0][0]) and torch.equal(d2[b], one[1][0])
+    # duplicates: the lower index first (d2 0 twice)
+    assert (idx[:, 100, :2].numpy() == [0, 100]).all()
+    # more neighbours than sources: the spent row selects index 0 at +inf
+    idx, d2 = neighbors.knn_with_dist(torch.from_numpy(pos[:, :5]),
+                                      torch.from_numpy(pos[:, :5]), 8)
+    assert (idx[..., 5:] == 0).all() and torch.isinf(d2[..., 5:]).all()
+    want_idx, want_d2 = _scan(pos[0, :5], pos[0, :5], 8)
+    np.testing.assert_array_equal(idx[0].numpy(), want_idx)
+
+
+@pytest.mark.parametrize("B,N,m", [(8, 256, 154), (4, 308, 185), (3, 128, 77),
+                                   (2, 512, 308)])
+def test_plain_fps_matches_vmapped_fps_masked(B, N, m):
+    r = np.random.default_rng(B * N + m)
+    pos = r.normal(size=(B, N, 3)).astype(np.float32)
+    nv = r.integers(max(1, m // 4), N + 1, B)
+    nv[0] = max(1, m // 3)                            # fewer valid than picks
+    pos[:, 10:14] = pos[:, :4]                        # duplicates
+    for i in range(B):
+        pos[i, nv[i]:] = 1.0e6
+    valid = np.arange(N)[None, :] < nv[:, None]
+    starts = (r.integers(0, 1 << 30, B) % nv).astype(np.int32)
+    got = neighbors.fps_masked_batch(torch.from_numpy(pos), torch.from_numpy(valid),
+                                     m, torch.from_numpy(starts)).numpy()
+    want = np.asarray(jax.vmap(lambda p, v, s: _fps_masked(p, v, m, s))(
+        pos, valid, starts))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    for i in range(B):                       # never an invalid point
+        assert (got[i] < nv[i]).all()
