@@ -7,7 +7,7 @@ kernel of those paths against its plain torch version.
 
 Phases, one JSON line each:
   1. device     name, count, nvidia-smi name and power limit; no CUDA -> fail
-  2. build      nvcc of the seven dipole_tpu_torch/csrc/*.cu for sm_90a;
+  2. build      nvcc of the eight dipole_tpu_torch/csrc/*.cu for sm_90a;
                 seconds, ptxas registers and spills
   3. checks     each kernel against its plain version on the card:
                 potential 1000 lattice targets x 180k sources (+ a lattice
@@ -23,7 +23,16 @@ Phases, one JSON line each:
                 range; |dF| <= 1e-4 sum|I| per entry), knn (sentinel rows,
                 duplicates, cross shapes, k above the source count) and fps
                 (ragged valid counts, sentinel rows, duplicates, fewer valid
-                points than picks), knn and fps bit-equal
+                points than picks), knn and fps bit-equal; the xie slice's
+                kernels: the xie matrix in both layouts (I and I^T) at 4096
+                points (coincident pairs: n.n; a pair 1e-20 apart whose
+                entry overflows: 0), 3001, C = 2.5 and targets != sources,
+                bit-equal; the xie greedy at 2000 and 10000 points, with and
+                without a k = 8 kNN mask, acc and sign bit-equal; the replay
+                for 1, 3 and 9 orders, xie and dipole matrices, kNN mask and
+                points_weight on and off, 8- and 16-block clusters: identical
+                decisions, recorded interactions within 1e-6 of sum |I w|;
+                the diffuse replay and the diffuse xie, card against CPU
   4. main path  api.orient_simple(device="cuda") on a 10000-point 6-column
                 scrambled ellipsoid (matrix tier, diffuse) and a 180000-point
                 3-column ellipsoid (normal estimation + column tier); launch
@@ -38,7 +47,15 @@ Phases, one JSON line each:
                 (demos/lion.sh), api.transfer_orientation from the oriented
                 hand to a 180000-point hand; stage seconds and GT sign
                 agreement of each; the field, group, knn and fps kernels
-                launched, no plain version called on a CUDA tensor
+                launched, no plain version called on a CUDA tensor. Then the
+                xie slice on scrambled ellipsoids (xyz only, normals
+                re-estimated as the server does): api.orient(method="xie")
+                at 10000 points, method="tree_xie" (times 3) and "hoppe" at
+                30000 (the server's admission cap), and graph_dipole `run`
+                (grid, 10 parts) through its CLI on the 10000-point cloud
+                written to a .ply; GT sign agreement >= 0.95 each; orient
+                xie and tree_xie at 2000 points give the same signs on the
+                card as on the CPU
   5. timing     CUDA-event times of each kernel and its plain version at the
                 main path's shapes, the bound of each; there the imatrix
                 (10k) and the greedy (10k rows, 180k columns on the full
@@ -51,7 +68,12 @@ Phases, one JSON line each:
                 knn and fps bit-equal; kNN's library yardstick is one
                 torch.topk over the precomputed distances. One PointCNN
                 forward over that chunk is timed and traced (torch.profiler:
-                device busy share, the kernels that take the most time)
+                device busy share, the kernels that take the most time).
+                The xie slice's kernels at its shapes: the xie matrix at
+                30000 (I) and 10000 (I^T), the xie greedy at 10000, the
+                replay of the tree_xie run's 3 BFS orders at 30000 with 8-
+                and 16-block clusters and the automatic choice, and of 9
+                orders (graph_dipole's vote count) at 10000
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero before the
@@ -83,6 +105,9 @@ OPS_FIELD = 33                # the pair terms and both sums
 OPS_GROUP = OPS_IMATRIX + 1   # the entry and its sum
 OPS_KNN = 9                   # d2 and at least one comparison per pair
 OPS_FPS = 10                  # d2, the running minimum and the argmax
+OPS_XIE = 31                  # the xie entry (common.cuh's xie_pair)
+OPS_GREEDY_XIE = 4            # rate update (2), acc += rate, the compare
+OPS_REPLAY = 2                # one multiply-add per entry and order
 MODELS = [ROOT / "pre_trained_tpu" / f"dipole_{i}.pt" for i in range(3)]
 
 KERNELS = {
@@ -102,6 +127,12 @@ KERNELS = {
             "dipole_tpu/ops/neighbors_pallas.py:77"),
     "fps": ("dipole_tpu_torch/csrc/fps.cu",
             "dipole_tpu/ops/neighbors_pallas.py:158"),
+    "xie_imatrix": ("dipole_tpu_torch/csrc/imatrix.cu",
+                    "dipole_tpu/ops/fields_pallas.py:234"),
+    "greedy_xie": ("dipole_tpu_torch/csrc/greedy.cu",
+                   "dipole_tpu/ops/propagate.py:509"),
+    "replay": ("dipole_tpu_torch/csrc/replay.cu",
+               "dipole_tpu/ops/propagate.py:649"),
 }
 LIBRARY_CALLS = {"knn": "torch.topk(d2, k, largest=False) on the precomputed d2"}
 
@@ -618,9 +649,23 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
 
 
 def _patch_run(label, fn, gt, path_kernels, launches):
-    """One main-path run of a patch pipeline: counts reset just before and
-    read just after, stage seconds and GT sign agreement."""
+    """One main-path run that returns a cloud: _kernel_run, then the output's
+    shape, positions and GT sign agreement."""
     from dipole_tpu_torch.ops.metrics import sign_agreement
+
+    out = _kernel_run(label, fn, path_kernels, launches,
+                      lambda out: {"n": len(out), "gt_sign_agreement":
+                                   sign_agreement(out, gt)})
+    require(out.shape == (len(gt), 6) and bool(np.isfinite(out).all()),
+            f"{label}: bad output")
+    require(np.allclose(out[:, :3], gt[:, :3], atol=1e-4), f"{label}: positions moved")
+    return out, sign_agreement(out, gt)
+
+
+def _kernel_run(label, fn, path_kernels, launches, report=None):
+    """One main-path run: launch counts reset just before fn(timer) and read
+    just after, stage seconds, report(output) merged into the line; each
+    path kernel launched, no plain version called on a CUDA tensor."""
     from dipole_tpu_torch.utils.timing import timer_factory
 
     timer = timer_factory()
@@ -631,18 +676,14 @@ def _patch_run(label, fn, gt, path_kernels, launches):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, plain = _read_counts()
-    agree = sign_agreement(out, gt)
-    emit({"phase": "main_path", "run": label, "n": len(out), "seconds": wall,
-          "stages": timer.stages, "gt_sign_agreement": agree,
+    emit({"phase": "main_path", "run": label, "seconds": wall, "stages": timer.stages,
+          **(report(out) if report else {}),
           "launches": counts, "plain_cuda_calls": plain})
-    require(out.shape == (len(gt), 6) and bool(np.isfinite(out).all()),
-            f"{label}: bad output")
-    require(np.allclose(out[:, :3], gt[:, :3], atol=1e-4), f"{label}: positions moved")
     for name in path_kernels:
         require(counts[name] > 0, f"{label}: kernel {name} not launched")
         launches[name] = launches.get(name, 0) + counts[name]
     require(not any(plain.values()), f"{label}: plain version called on CUDA: {plain}")
-    return out, agree
+    return out
 
 
 HAND_FLAGS = dict(iters=10, propagation_iters=5, number_parts=30,
@@ -811,6 +852,303 @@ def _profile_forward(batch, valid, starts, dev) -> None:
                            "calls": e.count} for e in top]})
 
 
+def _rel_inter(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> float:
+    """max |got - want| / (sum |I w| of the entry), the replay's recorded
+    interactions against its plain version's."""
+    return float(((got - want).abs() / scale.clamp_min(1e-300)).max()) if got.numel() else 0.0
+
+
+def _replay_scale(I, orders, knn_idx, colw, w) -> torch.Tensor:
+    """sum over the row's kept entries of |I colw w| for each recorded
+    interaction: the scale of the replay's tolerance."""
+    T, n = orders.shape[0], I.shape[0]
+    scale = torch.zeros((T, n), dtype=torch.float64, device=I.device)
+    for t in range(T):
+        for b in range(0, orders.shape[1], 2048):
+            idx = orders[t, b:b + 2048]
+            rows = I[idx]
+            if knn_idx is not None:
+                rows = rows * (knn_idx[None, :, :] == idx[:, None, None]).any(-1)
+            if colw is not None:
+                rows = rows * colw[None, :]
+            scale[t, idx] = (rows.double() * w[t].double()).abs().sum(1)
+    return scale
+
+
+def check_replay(name_info: dict, I, orders, knn_idx, colw, cluster=None) -> float:
+    """The replay kernel against its plain version: identical decisions and
+    flips, the recorded interactions within 1e-6 of sum |I w|."""
+    from dipole_tpu_torch.ops import propagate, propagate_cuda
+
+    w_k, i_k = propagate_cuda.replay(I, orders, knn_idx, colw, cluster)
+    w_p, i_p = propagate.replay_plain(I, orders, knn_idx, colw)
+    torch.cuda.synchronize()
+    flips_same = bool(torch.equal(i_k < 0, i_p < 0))
+    rel = _rel_inter(i_k, i_p, _replay_scale(I, orders, knn_idx, colw, w_p))
+    err = float((i_k - i_p).abs().max())
+    emit({"phase": "check", "kernel": "replay", **name_info,
+          "blocks": propagate_cuda.last_grid(), "w_equal": bool(torch.equal(w_k, w_p)),
+          "flips_identical": flips_same, "max_abs_err": err,
+          "max_err_over_sum_abs": rel})
+    require(torch.equal(w_k, w_p) and flips_same,
+            f"replay: decisions differ ({name_info})")
+    require(rel <= 1e-6, f"replay: inter off by {rel} of sum |I w| ({name_info})")
+    return err
+
+
+def phase_checks_xie(gt10: np.ndarray, dev) -> dict:
+    """The xie slice's kernels against their plain versions: the xie matrix
+    in both layouts (bit-equal), the xie greedy (acc and sign bit-equal)
+    and the in-order replay (identical flips)."""
+    from dipole_tpu_torch.ops import fields, propagate, propagate_cuda
+    from dipole_tpu_torch.utils.io import Transform
+
+    errs = {"xie_imatrix": 0.0, "greedy_xie": 0.0, "replay": 0.0}
+    r = np.random.default_rng(SEED + 30)
+    # the replay's cloud and column weights
+    n = 1500
+    pc = Transform.trans(scramble(gt10[:n], SEED + 33))[0]
+    colw = torch.as_tensor(r.uniform(0.2, 1.0, n).astype(np.float32), device=dev)
+    # first the whole paths with their diffuse re-votes, card against CPU
+    # (host-heavy: done before the kernel checks, which leave the card warm
+    # for the main path)
+    orders = np.stack([r.permutation(n) for _ in range(3)])
+    for kernel in ("xie", "dipole"):
+        for masked in (False, True):
+            kw = dict(diffuse=True, kernel=kernel, knn_mask=8 if masked else -1,
+                      points_weight=colw.cpu().numpy())
+            on_card = propagate.xie_propagation_in_order(pc, orders, device="cuda", **kw)
+            on_cpu = propagate.xie_propagation_in_order(pc, orders, device="cpu", **kw)
+            same = float((on_card == on_cpu).mean())
+            emit({"phase": "check", "kernel": "replay", "what": "diffuse, card vs CPU",
+                  "kernel_matrix": kernel, "knn_mask": masked, "same_flips": same})
+            # the dense re-vote is a float32 matmul, summed in another order
+            # on each device: a near-zero interaction may take another sign
+            require(same >= 0.999, f"replay diffuse ({kernel}, mask {masked}): "
+                                   f"card and CPU differ on {1 - same:.6f} of flips")
+    # the sequential xie, diffuse and masked, card against CPU
+    for kk in (-1, 8):
+        on_card = propagate.xie_propagation_points(pc, diffuse=True, knn_mask=kk,
+                                                   device="cuda")
+        on_cpu = propagate.xie_propagation_points(pc, diffuse=True, knn_mask=kk,
+                                                  device="cpu")
+        same = float(((on_card[:, 3:6] * on_cpu[:, 3:6]).sum(1) > 0).mean())
+        emit({"phase": "check", "kernel": "greedy_xie", "what": "diffuse, card vs CPU",
+              "knn_mask": kk, "same_sign": same})
+        require(same >= 0.999, f"xie diffuse (mask {kk}): card and CPU differ on "
+                               f"{1 - same:.6f} of signs")
+    # xie matrix: 4096 points (coincident pairs and a pair 1e-20 apart whose
+    # entry overflows to non-finite), a non-multiple size, C != 3, targets
+    # other than the sources
+    pts = torch.as_tensor(Transform.trans(gt10[:4096])[0], device=dev)
+    pts[3840:] = pts[:256]
+    pts[1000, :3] = 0.0
+    pts[1001, :3] = torch.tensor([1e-20, 0.0, 0.0])
+    tgt = torch.as_tensor(ellipsoid(777, SEED + 31), device=dev) * 1.3
+    cases = [("4096", pts, None, 3.0), ("3001", pts[:3001].contiguous(), None, 3.0),
+             ("C=2.5", pts[:2500].contiguous(), None, 2.5),
+             ("targets", pts[:3001].contiguous(), tgt, 3.0)]
+    for label, src, targets, C in cases:
+        t_ = src if targets is None else targets
+        k = fields.xie_interaction_matrix(src, C=C, targets=targets)
+        kt = fields.xie_interaction_matrix(src, C=C, targets=targets, transposed=True)
+        p = fields.xie_interaction_matrix_plain(t_, src, C)
+        pt = fields.xie_interaction_matrix_plain(t_, src, C, transposed=True)
+        torch.cuda.synchronize()
+        errs["xie_imatrix"] = max(errs["xie_imatrix"], _equal(
+            "xie_imatrix", (k, kt), (p, pt), case=label, shape=list(k.shape)))
+        require(torch.equal(kt, k.t()), f"xie_imatrix: layouts differ ({label})")
+        if label == "4096":
+            a = pts[:256]
+            nn = a[:, 3] * a[:, 3] + a[:, 4] * a[:, 4] + a[:, 5] * a[:, 5]
+            require(torch.equal(k[torch.arange(3840, 4096), torch.arange(256)], nn),
+                    "xie_imatrix: coincident entries are not n.n")
+            require(float(k[1000, 1001]) == 0.0 and float(k[1001, 1000]) == 0.0,
+                    "xie_imatrix: non-finite pair not 0")
+
+    # xie greedy: quick size and 10k, from a nonzero start, with and without
+    # the kNN mask
+    for ng, start in ((2000, 17), (10000, 5)):
+        pcg = Transform.trans(scramble(gt10[:ng], SEED + ng))[0]
+        IT = fields.xie_interaction_matrix(torch.as_tensor(pcg, device=dev),
+                                           transposed=True)
+        for kk in (0, 8):
+            knn = (None if kk == 0 else
+                   torch.as_tensor(propagate._knn_idx(pcg, kk), device=dev))
+            t0 = time.perf_counter()
+            got = propagate_cuda.xie_greedy(IT, start, knn)
+            blocks = propagate_cuda.last_grid()
+            want = propagate.xie_greedy_plain(IT, start, knn)
+            torch.cuda.synchronize()
+            errs["greedy_xie"] = max(errs["greedy_xie"], _equal(
+                "greedy_xie", got, want, n=ng, start=start, knn_mask=kk,
+                blocks=blocks, seconds=time.perf_counter() - t0))
+            require(bool((got[1].abs() == 1).all()), "greedy_xie: a sign is not +-1")
+        del IT
+
+    # replay: T in {1, 3, 9}, xie and dipole, kNN mask and points_weight
+    pct = torch.as_tensor(pc, device=dev)
+    knn = torch.as_tensor(propagate._knn_idx(pc, 8), device=dev)
+    mats = {"xie": fields.xie_interaction_matrix(pct),
+            "dipole": fields.dipole_interaction_matrix(pct)}
+    for T in (1, 3, 9):
+        orders = torch.as_tensor(np.stack([r.permutation(n) for _ in range(T)]),
+                                 device=dev)
+        for kernel, I in mats.items():
+            for masked, cluster in ((False, 8), (False, 16), (True, None)):
+                for weighted in (False, True):
+                    errs["replay"] = max(errs["replay"], check_replay(
+                        dict(n=n, T=T, matrix=kernel, knn_mask=masked,
+                             points_weight=weighted, cluster=cluster),
+                        I, orders, knn if masked else None,
+                        colw if weighted else None, cluster))
+    return errs
+
+
+XIE_RUNS = (("xie10k", 10000, "xie", {}),
+            ("tree_xie30k_times3", 30000, "tree_xie", {"times": 3}),
+            ("hoppe30k", 30000, "hoppe", {}))
+XIE_PATH_KERNELS = {"xie": ("xie_imatrix", "greedy_xie", "dipole_potential"),
+                    "tree_xie": ("xie_imatrix", "replay", "dipole_potential"),
+                    "hoppe": ()}
+
+
+def phase_main_path_xie(gt10, gt30, launches) -> dict:
+    """api.orient's xie methods on the scrambled ellipsoids (xyz only: the
+    normals are re-estimated, as the handlers do), then graph_dipole's `run`
+    (grid, n_part 10) through its CLI on the 10k cloud; and the card against
+    the CPU at 2k for xie and tree_xie."""
+    import tempfile
+
+    from dipole_tpu_torch import api
+    from dipole_tpu_torch.cli import graph_dipole as gd_cli
+    from dipole_tpu_torch.utils.io import write_ply
+
+    agree = {}
+    for label, n, method, kw in XIE_RUNS:
+        gt = gt10 if n == 10000 else gt30
+        inp = scramble(gt, SEED + n)[:, :3].copy()
+        _, agree[label] = _patch_run(
+            label, lambda timer, inp=inp, method=method, kw=kw: _timed_orient(
+                timer, api.orient, inp, method, kw),
+            gt, XIE_PATH_KERNELS[method], launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "ellipsoid10k.ply"
+        write_ply(path, gt10[:, :3], gt10[:, 3:6])
+        # GT agreement from the metrics `run` prints: count_90 counts the
+        # points on the minority side of 90 degrees
+        metrics = _kernel_run(
+            "graph_dipole10k_grid_cli",
+            lambda t: gd_cli.main(["run", "--pc", str(path), "--device", "cuda"],
+                                  timer=t),
+            ("dipole_imatrix", "greedy_rows", "dipole_potential", "dipole_field"),
+            launches, lambda m: {"n": m["total_count"], "metrics": m,
+                                 "gt_sign_agreement": 1 - m["count_90"] / m["total_count"]})
+    agree["graph_dipole10k_grid_cli"] = 1.0 - metrics["count_90"] / metrics["total_count"]
+    for label, a in agree.items():
+        require(a >= 0.95, f"{label}: GT sign agreement {a} < 0.95")
+
+    small = scramble(gt10[:2000], SEED + 2)[:, :3].copy()
+    for method in ("xie", "tree_xie"):
+        on_card = api.orient(small, method=method, device="cuda")
+        on_cpu = api.orient(small, method=method, device="cpu")
+        same = float(((on_card[:, 3:6] * on_cpu[:, 3:6]).sum(1) > 0).mean())
+        emit({"phase": "main_path", "run": f"2k_{method}_card_vs_cpu", "same_sign": same})
+        require(same >= 0.999, f"{method}: card and CPU disagree on {1 - same:.6f} "
+                               "of signs")
+    return agree
+
+
+def _timed_orient(timer, orient, inp, method, kw):
+    with timer(f"orient {method}"):
+        return orient(inp, method=method, device="cuda", **kw)
+
+
+def phase_timing_xie(gt10, gt30, dev) -> dict:
+    """The xie slice's kernels at the main path's shapes: the xie matrix at
+    30k (tree_xie, I) and 10k (xie, I^T), the xie greedy at 10k, the replay
+    of the tree_xie run's three BFS orders at 30k; the kernel held to its
+    plain version there too."""
+    from dipole_tpu_torch.ops import fields, propagate, propagate_cuda
+    from dipole_tpu_torch.ops.estimate import estimate_normals
+    from dipole_tpu_torch.utils.io import Transform
+
+    res = {}
+    # the handlers' input: estimated normals, then normalized
+    pc30 = Transform.trans(estimate_normals(scramble(gt30, SEED + 30000)[:, :3],
+                                            device=dev))[0]
+    pc10 = Transform.trans(estimate_normals(scramble(gt10, SEED + 10000)[:, :3],
+                                            device=dev))[0]
+    p30 = torch.as_tensor(pc30, device=dev)
+    p10 = torch.as_tensor(pc10, device=dev)
+    n30, n10 = len(p30), len(p10)
+
+    sizes = {}
+    for label, p, transposed in (("30k_I", p30, False), ("10k_IT", p10, True)):
+        n = len(p)
+        I = fields.xie_interaction_matrix(p, transposed=transposed)
+        plain_ms, want = timed(
+            lambda: fields.xie_interaction_matrix_plain(p, p, 3.0, transposed))
+        err = _equal("xie_imatrix", I, want, n=n, transposed=transposed,
+                     main_path_shape=True)
+        del want
+        b = bound_ms(24 * 2 * n + 4 * n * n, OPS_XIE * n * n)
+        sizes[label] = dict(
+            shape=f"{n} x {n}" + (", transposed" if transposed else ""),
+            max_abs_err=err, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+            ms=cuda_ms(lambda: fields.xie_interaction_matrix(p, transposed=transposed),
+                       5, 1))
+        del I
+    res["xie_imatrix"] = {**sizes["30k_I"], "other_shapes": {"10k_IT": sizes["10k_IT"]}}
+
+    IT = fields.xie_interaction_matrix(p10, transposed=True)
+    got = propagate_cuda.xie_greedy(IT, 0)
+    blocks = propagate_cuda.last_grid()
+    plain_ms, want = timed(lambda: propagate.xie_greedy_plain(IT, 0))
+    b = bound_ms(4 * n10 * n10 + 12 * n10, OPS_GREEDY_XIE * n10 * (n10 - 1))
+    res["greedy_xie"] = dict(
+        shape=f"{n10} points", blocks=blocks,
+        max_abs_err=_equal("greedy_xie", got, want, n=n10, main_path_shape=True),
+        ms=cuda_ms(lambda: propagate_cuda.xie_greedy(IT, 0), 3, 0),
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
+    del IT
+
+    orders_np, _ = propagate.bfs_orders(pc30, 0, times=3)
+    orders = torch.as_tensor(orders_np, device=dev)
+    I = fields.xie_interaction_matrix(p30)
+    T = orders.shape[0]
+    modes = {}
+    for cluster in (8, 16):
+        err = check_replay(dict(n=n30, T=T, matrix="xie", cluster=cluster,
+                                main_path_shape=True), I, orders, None, None, cluster)
+        modes[cluster] = dict(
+            blocks=propagate_cuda.last_grid(), max_abs_err=err,
+            ms=cuda_ms(lambda: propagate_cuda.replay(I, orders, cluster=cluster), 3, 0))
+    plain_ms, _ = timed(lambda: propagate.replay_plain(I, orders))
+    # each input read once: I, the orders; each output written once: w, inter
+    b = bound_ms(4 * n30 * n30 + 4 * T * n30 + 12 * T * n30,
+                 OPS_REPLAY * T * n30 * n30)
+    # the main path's choice
+    main = dict(ms=cuda_ms(lambda: propagate_cuda.replay(I, orders), 3, 0),
+                blocks=propagate_cuda.last_grid())
+    res["replay"] = dict(
+        shape=f"{T} orders x {n30} points",
+        blocks=main["blocks"], max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+        ms=main["ms"], plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+        modes={f"cluster={c}": m for c, m in modes.items()},
+        bytes_read_by_this_design=4 * T * n30 * n30)
+    del I
+    # graph_dipole's vote count: 9 orders of a 10k cloud, in each mode
+    orders9 = torch.as_tensor(propagate.bfs_orders(pc10, 0, times=9)[0], device=dev)
+    I = fields.xie_interaction_matrix(p10)
+    res["replay"]["modes_9_orders_10k"] = {
+        f"cluster={c}": cuda_ms(lambda: propagate_cuda.replay(I, orders9, cluster=c), 3, 1)
+        for c in (8, 16, None)}
+    del I
+    emit({"phase": "timing", "xie_kernels": res})
+    return res
+
+
 def main(argv) -> int:
     checks_only = "--checks-only" in argv
     info = phase_device()
@@ -825,6 +1163,7 @@ def main(argv) -> int:
     cloud180 = torch.as_tensor(Transform.trans(gt180)[0], device=dev)
     errs = phase_checks(cloud180, gt10)
     errs.update(phase_checks_patch(dev))
+    errs.update(phase_checks_xie(gt10, dev))
     if checks_only:
         emit({"phase": "done", "checks_only": True})
         return 0
@@ -835,8 +1174,11 @@ def main(argv) -> int:
     lion = metaball_cloud(180000, LION_BALLS, 1.35, SEED + 12)
     emit({"phase": "shapes", "seconds": time.perf_counter() - t0})
     hand_out = phase_main_path_patches(hand10, hand180, lion, launches)
+    gt30 = ellipsoid(30000, SEED + 30)
+    phase_main_path_xie(gt10, gt30, launches)
     timing = phase_timing(gt10, gt180, dev)
     timing.update(phase_timing_patches(hand_out, hand180, lion, dev))
+    timing.update(phase_timing_xie(gt10, gt30, dev))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -6,7 +6,10 @@ propagation (`api.orient_simple`, `python -m
 dipole_tpu_torch.cli.orient_simple`) and the patch pipelines with the PointCNN
 ensemble (`api.orient_patches`, `orient_large`, `transfer_orientation` and
 the CLIs `orient_pointcloud`, `orient_large`, `dipole_api`,
-`reference_orientation`) end to end.
+`reference_orientation`) end to end; and the mirror-field ("xie") family:
+`api.orient(method="xie"|"tree_xie"|"hoppe")`, the server's algorithm
+handlers (`serve.handlers.dispatch`) and the patch-graph pipeline
+(`pipelines.graph_dipole`, `python -m dipole_tpu_torch.cli.graph_dipole`).
 
 Ground rules:
   * No JAX. The package imports `torch`, never `jax`, and nothing of

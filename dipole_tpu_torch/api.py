@@ -1,5 +1,6 @@
 """In-memory orientation API — the port of dipole_tpu/api.py:139-193 and
-:223-642: per-point propagation and the patch pipelines.
+:223-642: per-point propagation, the patch pipelines, and the xie, tree-xie
+and Hoppe methods of `orient` (through serve/handlers.py).
 
 Arrays in, oriented (N, 6) float32 arrays out, in the ORIGINAL coordinate
 space (normalization is internal). Every function takes `device` (default
@@ -345,19 +346,14 @@ def transfer_orientation(reference_pc, target, estimate: bool = False,
     return fields.reference_field(reference_pc, target, device=dev)
 
 
-_LATER_SLICES = {
-    "xie": "the xie slice",
-    "tree_xie": "the xie slice",
-    "hoppe": "the serving slice (serve/handlers.py)",
-}
-
-
 def orient(points, method: str = "auto", models=(), **kwargs) -> np.ndarray:
     """One-call orientation. method: 'auto' | 'simple' | 'patches' |
-    'large' (ported) | 'xie' | 'tree_xie' | 'hoppe' (later slices: they
-    raise NotImplementedError). 'auto' picks as the JAX package does:
-    'large' above 50k points, else 'patches' with models and 'simple'
-    without."""
+    'large' | 'xie' | 'tree_xie' | 'hoppe'. 'auto' picks as the JAX package
+    does: 'large' above 50k points, else 'patches' with models and 'simple'
+    without. xie/tree_xie/hoppe take the server protocol's config keys
+    (serve/handlers.py) as kwargs, with the JAX defaults (n -> max_nn 30,
+    eps 1.0, diffuse False, times 3; hoppe: n -> k_neighbor 10); like the
+    server they take xyz only and re-estimate the normals."""
     points = np.asarray(points)
     if method == "auto":
         if len(points) > 50_000:
@@ -370,8 +366,18 @@ def orient(points, method: str = "auto", models=(), **kwargs) -> np.ndarray:
         return orient_patches(points, models=models, **kwargs)
     if method == "large":
         return orient_large(points, models=models, **kwargs)
-    if method in _LATER_SLICES:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet: it comes with "
-            f"{_LATER_SLICES[method]}")
+    if method in ("xie", "tree_xie", "hoppe"):
+        from dipole_tpu_torch.serve import handlers
+
+        device = kwargs.pop("device", "cuda")
+        name = {"xie": "xie_propagation", "tree_xie": "tree_xie_propagation",
+                "hoppe": "hoppe_estimate"}[method]
+        if method == "hoppe":
+            # hoppe_estimate reads k_neighbor/r, not max_nn
+            config = {"k_neighbor": kwargs.pop("n", 10), **kwargs}
+        else:
+            config = {"max_nn": kwargs.pop("n", 30), "eps": 1.0,
+                      "diffuse": False, "times": 3, **kwargs}
+        out = handlers.dispatch(name, points[:, :3], config, device=device)
+        return np.asarray(out, dtype=np.float32)
     raise ValueError(f"unknown method {method!r}")

@@ -18,6 +18,8 @@
 //               symmetry, as in the JAX scan);
 //   column mode computes column c on the fly from the cloud, the formula of
 //               propagate.py:_dipole_column (109-124).
+// A third loop, the xie mode (xie_greedy_kernel below), runs the mirror-field
+// propagation over rows of the transposed xie matrix on the same grid.
 //
 // What bounds it on an H100: latency. Each step depends on a global argmax
 // over all of acc, so the grid meets at a barrier once a step; at N = 180k
@@ -62,6 +64,7 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kOneBlockMaxN = 3 * kThreads;
+constexpr int kMaxK = 256;  // kNN mask width of the xie mode
 
 struct Cand {
   float v;  // |acc| of an unvisited point
@@ -187,6 +190,116 @@ greedy_kernel(const float* __restrict__ data, int n, int start, float eps,
   }
 }
 
+// The mirror-field ("xie") sequential loop (xie mode), which replaces the
+// XLA scan dipole_tpu/ops/propagate.py:_xie_greedy_scan (:509-555). It
+// keeps a rate vector besides acc: rate starts as the start point's column
+// and acc at 0; each step adds rate to acc, picks the unvisited point with
+// the largest SIGNED acc (ties to the lowest index), sets its sign to -1 iff
+// its acc < 0, and adds sign x its column to rate, in that order. IT is the
+// (n, n) transposed xie matrix, so column c of I is the contiguous row c of
+// IT. knn (n, k), when k > 0, is the kNN mask in index form: column c is
+// multiplied by 1 at the rows knn[c] and by 0 elsewhere, as the JAX scan
+// does, without a dense mask. Every update is elementwise with s = +-1, so
+// kernel and plain version agree bit for bit in acc and sign. The grid, the
+// candidate reduction and the one barrier per step are the greedy's above;
+// the sweep count is the same: n sweeps, n - 1 picks, and acc += rate in
+// all but the last sweep (n - 1 additions, as the JAX scan's n - 1 steps).
+__global__ void __launch_bounds__(kThreads, 1)
+xie_greedy_kernel(const float* __restrict__ IT, int n, int start,
+                  const int* __restrict__ knn, int k,
+                  float* __restrict__ acc, float* __restrict__ rate,
+                  float* __restrict__ sign, float* __restrict__ part_v,
+                  int* __restrict__ part_i, float* __restrict__ part_a) {
+  __shared__ Cand sh[33];
+  __shared__ int hits[kMaxK];
+  const size_t nn = n;
+  const int stride = gridDim.x * blockDim.x;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  int c = start;
+  float s = 1.f;
+  for (int step = 0; step < n; ++step) {
+    if (k > 0) {
+      for (int m = threadIdx.x; m < k; m += blockDim.x) {
+        hits[m] = knn[(size_t)c * k + m];
+      }
+      __syncthreads();
+    }
+    const float* col = IT + (size_t)c * nn;
+    const bool add = step < n - 1;
+    Cand best{-INFINITY, INT_MAX, 0.f};
+    for (int i = tid; i < n; i += stride) {
+      float v = col[i];
+      if (k > 0) {
+        bool hit = false;
+        for (int m = 0; m < k; ++m) hit |= hits[m] == i;
+        v = v * (hit ? 1.f : 0.f);
+      }
+      float r, a, sg;
+      if (step == 0) {
+        r = v;
+        sg = (i == start) ? 1.f : 0.f;
+        sign[i] = sg;
+        a = add ? 0.f + r : 0.f;
+      } else {
+        sg = sign[i];
+        if (i == c) {
+          sg = s;
+          sign[i] = s;
+        }
+        r = rate[i] + s * v;
+        a = acc[i];
+        if (add) a = a + r;
+      }
+      rate[i] = r;
+      acc[i] = a;
+      if (sg == 0.f && better(a, i, best)) best = Cand{a, i, a};
+    }
+    if (!add) break;
+    best = block_reduce(best, sh);
+    const int slot = (step & 1) * gridDim.x;
+    if (threadIdx.x == 0) {
+      part_v[slot + blockIdx.x] = best.v;
+      part_i[slot + blockIdx.x] = best.i;
+      part_a[slot + blockIdx.x] = best.a;
+    }
+    if (gridDim.x > 1) {
+      cg::this_grid().sync();
+    } else {
+      __syncthreads();
+    }
+    Cand win{-INFINITY, INT_MAX, 0.f};
+    for (int q = threadIdx.x; q < (int)gridDim.x; q += blockDim.x) {
+      const float v = __ldcg(part_v + slot + q);
+      const int i = __ldcg(part_i + slot + q);
+      if (better(v, i, win)) win = Cand{v, i, __ldcg(part_a + slot + q)};
+    }
+    win = block_reduce(win, sh);
+    c = win.i;
+    s = win.a < 0.f ? -1.f : 1.f;
+  }
+}
+
+// Grid of a cooperative greedy launch over n points: one block up to
+// kOneBlockMaxN points, above that one block per SM, or fewer for small n,
+// and never more than part_capacity. Returns a cudaError_t value.
+int greedy_grid(void* kernel, int n, int part_capacity, int* blocks) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop || per_sm < 1) return static_cast<int>(cudaErrorNotSupported);
+  // one block per SM at most; per_sm >= 1, so all of them are co-resident
+  int b = n <= kOneBlockMaxN ? 1 : min((n + kThreads - 1) / kThreads, sms);
+  *blocks = min(b, part_capacity);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -207,26 +320,43 @@ int dipole_greedy(const float* data, int n, int start, float eps, int rows,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   void* kernel = rows ? (void*)greedy_kernel<true> : (void*)greedy_kernel<false>;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop || per_sm < 1) return static_cast<int>(cudaErrorNotSupported);
-  // one block per SM at most; per_sm >= 1, so all of them are co-resident
-  int blocks = n <= kOneBlockMaxN ? 1 : min((n + kThreads - 1) / kThreads, sms);
-  blocks = min(blocks, part_capacity);
+  int blocks = 0;
+  int e = greedy_grid(kernel, n, part_capacity, &blocks);
+  if (e != 0) return e;
   *blocks_out = blocks;
   void* args[] = {(void*)&data, (void*)&n,     (void*)&start,
                   (void*)&eps,  (void*)&acc,   (void*)&sign,
                   (void*)&part_v, (void*)&part_i, (void*)&part_a};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads),
-                                    args, 0, stream);
+  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(blocks),
+                                                dim3(kThreads), args, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The xie mode: the loop of xie_greedy_kernel over the (n, n) transposed
+// xie matrix IT from `start`; knn (n, k) int32 or k == 0 for no mask. acc,
+// rate and sign are (n,) outputs; the scratch and the grid as
+// dipole_greedy's. Returns a cudaError_t value (0 on success).
+int dipole_xie_greedy(const float* IT, int n, int start, const int* knn,
+                      int k, float* acc, float* rate, float* sign,
+                      float* part_v, int* part_i, float* part_a,
+                      int part_capacity, int* blocks_out,
+                      cudaStream_t stream) {
+  if (n <= 0 || start < 0 || start >= n || k < 0 || k > kMaxK ||
+      (k > 0 && knn == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void* kernel = (void*)xie_greedy_kernel;
+  int blocks = 0;
+  int e = greedy_grid(kernel, n, part_capacity, &blocks);
+  if (e != 0) return e;
+  *blocks_out = blocks;
+  void* args[] = {(void*)&IT,   (void*)&n,      (void*)&start,
+                  (void*)&knn,  (void*)&k,      (void*)&acc,
+                  (void*)&rate, (void*)&sign,   (void*)&part_v,
+                  (void*)&part_i, (void*)&part_a};
+  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(blocks),
+                                                dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

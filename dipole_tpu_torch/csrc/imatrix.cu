@@ -20,6 +20,16 @@
 // dipole_tpu/ops/fields.py:287-302, so kernel and plain version agree bit
 // for bit. The Pallas kernel's single-reciprocal form
 // (fields_pallas.py:228-229) differs from both in the last bits.
+//
+// The mirror-field ("xie") matrix, xie_imatrix below, replaces
+// dipole_tpu/ops/fields_pallas.py:_xie_imatrix_kernel (:234-254, via
+// xie_interaction_matrix_pallas :298). The same design and bound (N^2 x 4 B
+// written: 0.12 ms at 10k, 1.07 ms at 30k), with common.cuh's xie_pair. That
+// matrix is symmetric in exact arithmetic but not in float32 ((C nsR) ntR
+// rounds unlike (C ntR) nsR), and the sequential xie loop reads columns
+// while the replay reads rows; so the kernel writes either I or I^T, with
+// the register point as source or as target, and each path reads contiguous
+// rows of the one array it holds.
 
 #include "common.cuh"
 
@@ -60,6 +70,48 @@ imatrix_kernel(const float* __restrict__ tgt, int n_t,
   }
 }
 
+// The xie matrix in either layout. Each thread keeps one point of `reg` in
+// registers and writes its column of kRows staged points of `rows`:
+// out[r * n_reg + j] = xie_pair(source, target), where the register point
+// is the source (kRegIsSource, out = I with rows the targets) or the target
+// (out = I^T, rows the sources). Both layouts hold the same bits, entry for
+// entry, and both store 128 contiguous bytes per warp and row.
+template <bool kRegIsSource>
+__global__ void __launch_bounds__(kCols)
+xie_kernel(const float* __restrict__ rows_pts, int n_rows,
+           const float* __restrict__ reg_pts, int n_reg, float C,
+           float* __restrict__ out) {
+  __shared__ float t[6][kRows];
+  const int j = blockIdx.x * kCols + threadIdx.x;
+  const int n_row_blocks = (n_rows + kRows - 1) / kRows;
+  float qx = 0.f, qy = 0.f, qz = 0.f, qnx = 0.f, qny = 0.f, qnz = 0.f;
+  if (j < n_reg) {
+    const float* a = reg_pts + 6 * (size_t)j;
+    qx = a[0]; qy = a[1]; qz = a[2];
+    qnx = a[3]; qny = a[4]; qnz = a[5];
+  }
+  for (int rb = blockIdx.y; rb < n_row_blocks; rb += gridDim.y) {
+    const int i0 = rb * kRows;
+    if (threadIdx.x < 6 * kRows) {
+      const int r = threadIdx.x / 6, c = threadIdx.x % 6;
+      t[c][r] = (i0 + r < n_rows) ? rows_pts[6 * (size_t)(i0 + r) + c] : 0.f;
+    }
+    __syncthreads();
+    if (j < n_reg) {
+      const int rows = min(kRows, n_rows - i0);
+      for (int r = 0; r < rows; ++r) {
+        out[(size_t)(i0 + r) * n_reg + j] =
+            kRegIsSource
+                ? xie_pair(qx, qy, qz, qnx, qny, qnz, t[0][r], t[1][r],
+                           t[2][r], t[3][r], t[4][r], t[5][r], C)
+                : xie_pair(t[0][r], t[1][r], t[2][r], t[3][r], t[4][r],
+                           t[5][r], qx, qy, qz, qnx, qny, qnz, C);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -73,6 +125,27 @@ int dipole_imatrix(const float* tgt, int n_t, const float* src, int n_s,
   const int row_blocks = min((n_t + kRows - 1) / kRows, 65535);
   imatrix_kernel<<<dim3(col_blocks, row_blocks), kCols, 0, stream>>>(
       tgt, n_t, src, n_s, eps, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The xie matrix of tgt (n_t, 6) and src (n_s, 6): out is I (n_t, n_s)
+// when transposed == 0, I^T (n_s, n_t) otherwise. Returns cudaGetLastError().
+int xie_imatrix(const float* tgt, int n_t, const float* src, int n_s,
+                float C, int transposed, float* out, cudaStream_t stream) {
+  if (n_t <= 0 || n_s <= 0) return 0;
+  const float* rows = transposed ? src : tgt;
+  const float* reg = transposed ? tgt : src;
+  const int n_rows = transposed ? n_s : n_t;
+  const int n_reg = transposed ? n_t : n_s;
+  const dim3 grid((n_reg + kCols - 1) / kCols,
+                  min((n_rows + kRows - 1) / kRows, 65535));
+  if (transposed) {
+    xie_kernel<false><<<grid, kCols, 0, stream>>>(rows, n_rows, reg, n_reg, C,
+                                                  out);
+  } else {
+    xie_kernel<true><<<grid, kCols, 0, stream>>>(rows, n_rows, reg, n_reg, C,
+                                                 out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,8 +5,8 @@ The port's own copy of dipole_tpu/native.py:23-92. It loads the same
 neighbours with the same code. If that file is missing or does not load
 (the committed build uses -march=native, so another host may reject it), the
 source is built with the Makefile's flags into the port's ignored build
-directory, never into native/. If neither works the call raises: there is
-no scipy fallback on the port's path.
+directory, never into native/. If neither works the call raises: no entry
+point has a Python or scipy fallback on the port's path.
 """
 from __future__ import annotations
 
@@ -15,17 +15,20 @@ import os
 import shlex
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
 
-__all__ = ["knn", "load"]
+__all__ = ["knn", "bfs_route_csr", "flip_local_search", "hoppe_orient_signs",
+           "load"]
 
 _REPO = Path(__file__).resolve().parent.parent
 _NATIVE_DIR = _REPO / "native"
 _LIB_PATH = _NATIVE_DIR / "libdipole_native.so"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _lib = None
+_lock = threading.Lock()
 
 _F = ctypes.POINTER(ctypes.c_float)
 _I = ctypes.POINTER(ctypes.c_int)
@@ -79,6 +82,11 @@ def _probe(path: Path) -> None:
 def load():
     """The loaded native library (cached); raises if it can be neither
     loaded nor built."""
+    with _lock:
+        return _load()
+
+
+def _load():
     global _lib
     if _lib is not None:
         return _lib
@@ -117,3 +125,49 @@ def knn(base: np.ndarray, query: np.ndarray, k: int):
     lib.dn_knn(base.ctypes.data_as(_F), n, query.ctypes.data_as(_F), m, k,
                idx.ctypes.data_as(_I), d2.ctypes.data_as(_F))
     return idx.astype(np.int64), d2
+
+
+def bfs_route_csr(indptr: np.ndarray, indices: np.ndarray, start: int):
+    """BFS order with disconnected-component restart over a CSR graph
+    (dipole_tpu/native.py:95-137 without its Python fallback). Returns
+    (route (n,) int64, number of components)."""
+    n = len(indptr) - 1
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    indices = np.ascontiguousarray(indices, np.int32)
+    if not 0 <= start < n:
+        raise ValueError(f"start {start} outside [0, {n})")
+    lib = load()
+    out = np.empty(n, np.int64)
+    comp = lib.dn_bfs_route(
+        n, indptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        indices.ctypes.data_as(_I), int(start),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    return out, comp
+
+
+def hoppe_orient_signs(xyz: np.ndarray, nrm: np.ndarray, k: int) -> np.ndarray:
+    """Hoppe consistent orientation in C++: kNN graph, 1 - |n.n| Prim MST,
+    per-component max-z seeding and DFS sign propagation
+    (dipole_tpu/native.py:140-159). Returns signs (n,) int8 in {+1, -1}."""
+    xyz = np.ascontiguousarray(np.asarray(xyz, np.float32)[:, :3])
+    nrm = np.ascontiguousarray(np.asarray(nrm, np.float32)[:, :3])
+    n = len(xyz)
+    lib = load()
+    out = np.empty(n, np.int8)
+    lib.dn_hoppe_orient(xyz.ctypes.data_as(_F), nrm.ctypes.data_as(_F), n, int(k),
+                        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
+    return out
+
+
+def flip_local_search(M: np.ndarray, x0: np.ndarray, minimize: bool,
+                      max_rounds: int = 256) -> np.ndarray:
+    """Single-flip descent on obj = sum M_ij xor_ij from x0 in {0, 1}^n
+    (dipole_tpu/native.py:162-175). Returns x (n,) uint8."""
+    x = np.ascontiguousarray(np.asarray(x0, np.uint8).copy())
+    M = np.ascontiguousarray(np.asarray(M, np.float64))
+    lib = load()
+    lib.dn_flip_local_search(
+        len(x), M.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        -1 if minimize else 1, x.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        max_rounds)
+    return x

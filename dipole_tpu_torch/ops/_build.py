@@ -12,6 +12,11 @@ bit; --use_fast_math is never used (sqrtf and / stay IEEE). The libraries go
 to `dipole_tpu_torch/_build/<hash>/`, keyed by a hash of the sources and
 flags, on first use; all nvcc processes start together. A failed build
 raises; there is no fallback.
+
+Building and loading are serialised by one lock, and the temporary output
+names carry the process and the thread: threads that call their first
+kernels together (graph_dipole's per-patch estimator runs one thread per
+patch) build each library once and never write one file from two jobs.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -28,7 +34,8 @@ __all__ = ["SOURCES", "build_all", "library", "entry", "check", "BUILD_LOG"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("potential", "imatrix", "greedy", "field", "group", "knn", "fps")
+SOURCES = ("potential", "imatrix", "greedy", "field", "group", "knn", "fps",
+           "replay")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 _NVCC_TIMEOUT_S = 600
@@ -36,6 +43,7 @@ _NVCC_TIMEOUT_S = 600
 # name -> nvcc's output (ptxas registers and spills), filled by a fresh build
 BUILD_LOG: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -60,6 +68,11 @@ def _digest() -> str:
 def build_all() -> dict[str, Path]:
     """Path of every kernel library, building the missing ones (one nvcc
     per source, all started together). Returns {name: path}."""
+    with _lock:
+        return _build_all()
+
+
+def _build_all() -> dict[str, Path]:
     out_dir = BUILD_ROOT / _digest()
     paths = {name: out_dir / f"lib{name}.so" for name in SOURCES}
     todo = [name for name in SOURCES if not paths[name].exists()]
@@ -70,7 +83,8 @@ def build_all() -> dict[str, Path]:
     procs = {}
     try:
         for name in todo:
-            tmp = paths[name].with_name(f"lib{name}.so.tmp{os.getpid()}")
+            tmp = paths[name].with_name(
+                f"lib{name}.so.tmp{os.getpid()}.{threading.get_ident()}")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True),
@@ -94,12 +108,13 @@ def build_all() -> dict[str, Path]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name` (built on first use)."""
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build_all()[name]))
-        lib.dipole_error_string.restype = ctypes.c_char_p
-        lib.dipole_error_string.argtypes = [ctypes.c_int]
-        _libs[name] = lib
-    return _libs[name]
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build_all()[name]))
+            lib.dipole_error_string.restype = ctypes.c_char_p
+            lib.dipole_error_string.argtypes = [ctypes.c_int]
+            _libs[name] = lib
+        return _libs[name]
 
 
 def entry(lib_name: str, fn_name: str, argtypes):

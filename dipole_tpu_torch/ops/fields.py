@@ -1,6 +1,6 @@
-"""Dipole potential, field, interaction matrix and group interaction — the
-port of dipole_tpu/ops/fields.py:107-227, :262-302 (:369-397) and
-:430-468.
+"""Dipole potential, field, interaction matrices, group interaction and the
+edge calculators — the port of dipole_tpu/ops/fields.py:107-227, :262-324
+(:369-427), :430-468 and :475-532.
 
 Physics (reference field_utils.py):
   potential  phi_t = sum_s p_s . R_ts / |R_ts|^3, R_ts = x_s - x_t, no eps;
@@ -12,6 +12,9 @@ Physics (reference field_utils.py):
   matrix     I[i, j] = E_j(x_i) . n_i, zero-distance and non-finite
              entries 0
   group      F[i, g] = sum over sources j of group g of I[i, j]
+  xie        I[i, j] = (n_j.n_i - C (n_j.R)/r (n_i.R)/r) / r^3, the mirror
+             field of j at i dotted with n_i; n_j.n_i at r = 0, non-finite
+             entries 0 (field_utils.py:431-469, 509-519)
 
 Each public function here is the dispatch point for its kernel: a CPU
 tensor takes the plain torch version below, any other device goes to the
@@ -38,10 +41,14 @@ __all__ = ["potential", "potential_plain", "measure_mean_potential",
            "field_grad", "field_grad_plain", "reference_field",
            "dipole_interaction_matrix", "dipole_interaction_matrix_plain",
            "point_group_interaction", "point_group_interaction_plain",
+           "xie_interaction_matrix", "xie_interaction_matrix_plain",
+           "field_edge_calculator", "field_edge_calculator_bool",
+           "field_edge_calculator_count", "self_interaction",
+           "self_interaction_all", "random_self_interaction", "xie_distance",
            "sqrt_rn", "PLAIN_CUDA_CALLS"]
 
 PLAIN_CUDA_CALLS = {"dipole_potential": 0, "dipole_imatrix": 0,
-                    "dipole_field": 0, "dipole_group": 0}
+                    "dipole_field": 0, "dipole_group": 0, "xie_imatrix": 0}
 
 _PLAIN_BLOCK_S = 8192   # sources per tile of the plain potential
 _PLAIN_BLOCK_T = 1024   # target rows per tile of the plain matrix and field
@@ -259,3 +266,146 @@ def point_group_interaction(pts, group_ids, num_groups: int, eps: float = 1e-5,
     if pts.device.type == "cpu":
         return point_group_interaction_plain(pts, gid, num_groups, eps)
     return fields_cuda.point_group(pts, gid, num_groups, eps)
+
+
+def _xie_tile(t: torch.Tensor, sources: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """I (T, M) of the xie matrix for targets t (T, 6) and sources (M, 6):
+    the XLA tile formula of fields.py:305-324 term for term, as
+    csrc/common.cuh's xie_pair."""
+    sx, sy, sz, px, py, pz = (sources[:, k] for k in range(6))
+    tx, ty, tz, nx, ny, nz = (t[:, k:k + 1] for k in range(6))
+    Rx = sx - tx
+    Ry = sy - ty
+    Rz = sz - tz
+    r2 = Rx * Rx + Ry * Ry + Rz * Rz
+    zero = r2 == 0.0
+    r = sqrt_rn(r2)
+    one = torch.ones_like(r2)
+    safe_r = torch.where(zero, one, r)
+    nsR = (px * Rx + py * Ry + pz * Rz) / safe_r
+    ntR = (nx * Rx + ny * Ry + nz * Rz) / safe_r
+    nn = px * nx + py * ny + pz * nz
+    core = nn - C * nsR * ntR
+    r3 = r2 * r
+    I = torch.where(zero, nn, core / torch.where(zero, one, r3))
+    return torch.where(torch.isfinite(I), I, torch.zeros_like(I))
+
+
+def xie_interaction_matrix_plain(targets: torch.Tensor, sources: torch.Tensor,
+                                 C: float, transposed: bool = False) -> torch.Tensor:
+    """Plain torch version of the xie matrix kernel. targets (T, 6), sources
+    (M, 6) -> I (T, M), or I^T (M, T) with the same bits when transposed."""
+    _count_plain("xie_imatrix", sources)
+    c = torch.tensor(C, dtype=torch.float32, device=sources.device)
+    if transposed:
+        out = torch.empty((sources.shape[0], targets.shape[0]),
+                          dtype=torch.float32, device=sources.device)
+        for b in range(0, sources.shape[0], _PLAIN_BLOCK_T):
+            out[b:b + _PLAIN_BLOCK_T] = _xie_tile(
+                targets, sources[b:b + _PLAIN_BLOCK_T], c).t()
+        return out
+    out = torch.empty((targets.shape[0], sources.shape[0]), dtype=torch.float32,
+                      device=sources.device)
+    for b in range(0, targets.shape[0], _PLAIN_BLOCK_T):
+        out[b:b + _PLAIN_BLOCK_T] = _xie_tile(targets[b:b + _PLAIN_BLOCK_T],
+                                              sources, c)
+    return out
+
+
+def xie_interaction_matrix(pts: torch.Tensor, C: float = 3.0,
+                           targets: torch.Tensor | None = None, knn_mask=None,
+                           transposed: bool = False) -> torch.Tensor:
+    """Mirror-field interaction matrix I (T, M) (reference xie_intersaction,
+    field_utils.py:509-519; JAX fields.py:400-427). pts (M, >=6) sources;
+    targets (T, >=6), default pts. knn_mask: optional dense (T, M) 0/1 array
+    keeping pair (i, j) iff target i is among source j's nearest (the
+    propagation loops take the index form instead). transposed: return I^T
+    (M, T), the layout the sequential xie loop reads columns from. The
+    card's kernel runs exactly the real rows and columns (the JAX bucket
+    padding is a TPU artefact)."""
+    src = pts[:, :6].contiguous()
+    tgt = src if targets is None else targets[:, :6].contiguous()
+    if src.device.type == "cpu":
+        I = xie_interaction_matrix_plain(tgt, src, C, transposed)
+    else:
+        I = fields_cuda.xie_imatrix(tgt, src, C, transposed)
+    if knn_mask is not None:
+        mask = as_f32(knn_mask, I.device)
+        I = I * (mask.t() if transposed else mask)
+    return I
+
+
+# ---------------------------------------------------------------------------
+# Edge calculators / self-interaction diagnostics (JAX fields.py:475-532)
+# ---------------------------------------------------------------------------
+
+def field_edge_calculator(sources, targets, if_save: bool = False,
+                          device="cuda"):
+    """Patch-patch interaction weight (reference field_utils.py:145-160):
+    w = (2 * sum E(S->T).n_T / |S|) * |T| (that operator order is the
+    reference's), and its negation. The field runs on csrc/field.cu on the
+    card; the sum over targets is float32, as in the JAX package."""
+    dev = resolve_device(device)
+    tgt = as_f32(targets, dev)
+    E = field_grad(as_f32(sources, dev), tgt[:, :3])
+    inter = float(torch.sum(E * tgt[:, 3:6]))
+    w = inter * 2.0 / np.shape(sources)[0] * np.shape(targets)[0]
+    return w, -w
+
+
+def field_edge_calculator_bool(sources, targets, if_save: bool = False,
+                               device="cuda"):
+    w, _ = field_edge_calculator(sources, targets, if_save, device=device)
+    return (1, -1) if w > 0 else (-1, 1)
+
+
+def field_edge_calculator_count(sources, targets, if_save: bool = False,
+                                device="cuda"):
+    w, _ = field_edge_calculator(sources, targets, if_save, device=device)
+    n = np.shape(sources)[0] * np.shape(targets)[0]
+    return (n, -n) if w > 0 else (-n, n)
+
+
+def self_interaction(nxyz, eps: float = 1e-5,
+                     rng: np.random.Generator | None = None, device="cuda"):
+    """Interaction between a random half-split of a cloud (reference
+    field_utils.py:163-171)."""
+    nxyz = np.asarray(nxyz)
+    assert nxyz.shape[1] == 6
+    rng = rng or np.random.default_rng()
+    num = nxyz.shape[0]
+    mask = np.ones(num, dtype=bool)
+    mask[rng.permutation(num)[: num // 2]] = False
+    w, _ = field_edge_calculator(nxyz[mask], nxyz[~mask], device=device)
+    return w
+
+
+def self_interaction_all(nxyz, eps: float = 1e-5, device="cuda"):
+    w, _ = field_edge_calculator(nxyz, nxyz, device=device)
+    return w
+
+
+def random_self_interaction(nxyz, eps: float = 1e-5,
+                            rng: np.random.Generator | None = None,
+                            device="cuda"):
+    nxyz = np.asarray(nxyz).copy()
+    assert nxyz.shape[1] == 6
+    rng = rng or np.random.default_rng()
+    flip = np.zeros(nxyz.shape[0], dtype=bool)
+    flip[rng.permutation(nxyz.shape[0])[: nxyz.shape[0] // 2]] = True
+    nxyz[flip, 3:] *= -1
+    w, _ = field_edge_calculator(nxyz, nxyz, device=device)
+    return w
+
+
+def xie_distance(sources, targets, device="cuda") -> torch.Tensor:
+    """Per-target sum over sources of |n_s elementwise* R| (reference
+    field_utils.py:522-526), tiled over targets."""
+    dev = resolve_device(device)
+    src = as_f32(sources, dev)
+    tgt = as_f32(targets, dev)
+    out = []
+    for b in range(0, tgt.shape[0], _PLAIN_BLOCK_T):
+        R = src[None, :, :3] - tgt[b:b + _PLAIN_BLOCK_T, None, :3]
+        out.append(torch.linalg.norm(src[None, :, 3:6] * R, dim=-1).sum(dim=-1))
+    return torch.cat(out) if out else torch.zeros(0, device=dev)

@@ -1,6 +1,7 @@
 """Wrappers of the field kernels: `csrc/potential.cu` (replaces
 dipole_tpu/ops/fields_pallas.py:_potential_kernel), `csrc/imatrix.cu`
-(fields_pallas.py:_dipole_imatrix_kernel), `csrc/field.cu`
+(fields_pallas.py:_dipole_imatrix_kernel and, as xie_imatrix,
+_xie_imatrix_kernel), `csrc/field.cu`
 (fields_pallas.py:_field_kernel) and `csrc/group.cu`
 (fields_pallas.py:_group_kernel).
 
@@ -18,11 +19,11 @@ import torch
 
 from dipole_tpu_torch.ops import _build
 
-__all__ = ["potential", "dipole_imatrix", "field_grad", "point_group",
-           "LAUNCHES"]
+__all__ = ["potential", "dipole_imatrix", "xie_imatrix", "field_grad",
+           "point_group", "matrix_out", "LAUNCHES"]
 
 LAUNCHES = {"dipole_potential": 0, "dipole_imatrix": 0, "dipole_field": 0,
-            "dipole_group": 0}
+            "dipole_group": 0, "xie_imatrix": 0}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int
@@ -65,6 +66,19 @@ def potential(sources: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def matrix_out(rows: int, cols: int, device, what: str) -> torch.Tensor:
+    """An empty (rows, cols) float32 matrix on `device`; a MemoryError that
+    names the size when the card cannot hold it, raised by the allocation,
+    before any kernel runs."""
+    try:
+        return torch.empty((rows, cols), dtype=torch.float32, device=device)
+    except torch.cuda.OutOfMemoryError as e:
+        raise MemoryError(
+            f"{what}: a {rows} x {cols} float32 matrix needs "
+            f"{4 * rows * cols / 1e9:.2f} GB, more than the card can hold "
+            f"({e})") from e
+
+
 def dipole_imatrix(targets: torch.Tensor, sources: torch.Tensor,
                    eps: float) -> torch.Tensor:
     """I (T, M), I[i, j] = E_j(x_i) . n_i, from targets (T, 6) and sources
@@ -76,13 +90,36 @@ def dipole_imatrix(targets: torch.Tensor, sources: torch.Tensor,
     lib, fn = _build.entry("imatrix", "dipole_imatrix",
                      [_P, _N, _P, _N, ctypes.c_float, _P, _P])
     t, m = targets.shape[0], sources.shape[0]
-    out = torch.empty((t, m), dtype=torch.float32, device=sources.device)
+    out = matrix_out(t, m, sources.device, "dipole_imatrix")
     with torch.cuda.device(sources.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(targets.data_ptr(), t, sources.data_ptr(), m, float(eps),
                  out.data_ptr(), stream)
     _build.check(lib, err, "dipole_imatrix")
     LAUNCHES["dipole_imatrix"] += 1
+    return out
+
+
+def xie_imatrix(targets: torch.Tensor, sources: torch.Tensor, C: float,
+                transposed: bool = False) -> torch.Tensor:
+    """The xie matrix I (T, M) of targets (T, 6) and sources (M, 6), or I^T
+    (M, T) with the same bits when transposed — on the card, by
+    csrc/imatrix.cu's xie_imatrix."""
+    check_tensor(targets, "targets", 6)
+    check_tensor(sources, "sources", 6)
+    if sources.device != targets.device:
+        raise ValueError("sources and targets on different devices")
+    lib, fn = _build.entry("imatrix", "xie_imatrix",
+                           [_P, _N, _P, _N, ctypes.c_float, _N, _P, _P])
+    t, m = targets.shape[0], sources.shape[0]
+    out = matrix_out(m, t, sources.device, "xie_imatrix") if transposed \
+        else matrix_out(t, m, sources.device, "xie_imatrix")
+    with torch.cuda.device(sources.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(targets.data_ptr(), t, sources.data_ptr(), m, float(C),
+                 int(transposed), out.data_ptr(), stream)
+    _build.check(lib, err, "xie_imatrix")
+    LAUNCHES["xie_imatrix"] += 1
     return out
 
 

@@ -22,25 +22,40 @@ same greedy over patches: the pair work is the group interaction F[i, q]
 (fields.point_group_interaction, csrc/group.cu on the card), the patch-patch
 weights W = F summed over each patch's targets, and the P-step greedy over W
 runs on the host in float64 as in the JAX package.
+
+The mirror-field ("xie") family (JAX propagate.py:509-857) runs over the xie
+matrix (fields.xie_interaction_matrix): the sequential loop over the
+transposed matrix (csrc/greedy.cu's xie mode), the in-order replay of T
+orders in lock-step over the matrix's rows (csrc/replay.cu), and the
+BFS-tree voting that draws the orders on the host and aligns the replayed
+runs exactly (ops/solve.py). Every path holds one N x N array: exactly N
+rows and columns (the JAX bucket padding is a TPU artefact), the kNN mask
+in (N, k) index form, points_weight applied on the fly.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from dipole_tpu_torch import graphs, native
 from dipole_tpu_torch.device import as_f32, resolve_device
-from dipole_tpu_torch.ops import fields, propagate_cuda
+from dipole_tpu_torch.ops import fields, propagate_cuda, solve
 
 __all__ = ["greedy_sign_sequence", "strongest_field_propagation_points",
            "strongest_field_propagation_patches",
            "strongest_field_propagation_reps",
-           "greedy_rows_plain", "greedy_columns_plain", "dipole_column",
+           "xie_propagation_points", "xie_propagation_points_plus",
+           "xie_propagation_in_order", "xie_propagation_bfs_tree",
+           "bfs_orders", "align_and_vote",
+           "greedy_rows_plain", "greedy_columns_plain", "xie_greedy_plain",
+           "replay_plain", "dipole_column",
            "MATRIX_LIMIT", "MAX_POINTS", "PLAIN_CUDA_CALLS"]
 
 MATRIX_LIMIT = 10000
 MAX_POINTS = 2**24
 
-PLAIN_CUDA_CALLS = {"greedy_rows": 0, "greedy_columns": 0}
+PLAIN_CUDA_CALLS = {"greedy_rows": 0, "greedy_columns": 0, "greedy_xie": 0,
+                    "replay": 0}
 
 
 def dipole_column(pts: torch.Tensor, c, eps: float) -> torch.Tensor:
@@ -300,3 +315,278 @@ def strongest_field_propagation_reps(pts, reps, diffuse: bool = False,
     out = pts.copy()
     out[:, 3:6] *= total[:, None]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Xie (mirror-field) propagation
+# ---------------------------------------------------------------------------
+
+def _knn_idx(pts: np.ndarray, k: int) -> np.ndarray:
+    """(N, min(N, k)) int64: row j holds source j's k nearest targets, self
+    included (the native host KD-tree)."""
+    idx, _ = native.knn(pts[:, :3], pts[:, :3], min(len(pts), k))
+    return idx
+
+
+def _build_knn_mask(pts: np.ndarray, k: int) -> np.ndarray:
+    """Dense (N, N) mask: pair (i, j) kept iff target i is among source j's
+    k nearest targets (reference field_utils.py:449-458; JAX
+    propagate.py:635-646). The propagation loops take the index form."""
+    n = len(pts)
+    idx = _knn_idx(np.asarray(pts, np.float32), k)
+    mask = np.zeros((n, n), dtype=np.float32)
+    mask[idx.reshape(-1), np.repeat(np.arange(n), idx.shape[1])] = 1.0
+    return mask
+
+
+def xie_greedy_plain(IT: torch.Tensor, start: int, knn_idx=None):
+    """Plain torch version of the xie mode of csrc/greedy.cu: the XLA scan
+    propagate.py:_xie_greedy_scan step for step over the transposed xie
+    matrix IT (row c = column c of I), N - 1 steps."""
+    if IT.is_cuda:
+        PLAIN_CUDA_CALLS["greedy_xie"] += 1
+    n, dev = IT.shape[0], IT.device
+
+    def col(c):
+        column = IT.index_select(0, c.view(1))[0]
+        if knn_idx is not None:
+            m = torch.zeros(n, dtype=torch.float32, device=dev)
+            m[knn_idx.index_select(0, c.view(1))[0]] = 1.0
+            column = column * m
+        return column
+
+    acc = torch.zeros(n, dtype=torch.float32, device=dev)
+    rate = col(torch.tensor(start, device=dev))
+    sign = torch.zeros(n, dtype=torch.float32, device=dev)
+    sign[start] = 1.0
+    visited = torch.zeros(n, dtype=torch.bool, device=dev)
+    visited[start] = True
+    neg_inf = torch.tensor(-float("inf"), device=dev)
+    one = torch.tensor(1.0, device=dev)
+    for _ in range(n - 1):
+        acc = acc + rate
+        c = torch.argmax(torch.where(visited, neg_inf, acc))
+        s = torch.where(acc[c] < 0, -one, one)
+        sign[c] = s
+        visited[c] = True
+        rate = rate + s * col(c)
+    return acc, sign
+
+
+def _xie_greedy(IT: torch.Tensor, start: int, knn_idx):
+    if IT.device.type == "cpu":
+        return xie_greedy_plain(IT, start, knn_idx)
+    return propagate_cuda.xie_greedy(IT, start, knn_idx)
+
+
+def _masked_inter(IT: torch.Tensor, knn_idx: torch.Tensor,
+                  wq: torch.Tensor) -> torch.Tensor:
+    """inter[t, i] = sum over sources j with i in knn_idx[j] of
+    I[i, j] wq[t, j] (float64), from the transposed matrix IT[j, i]: the
+    mask's N k pairs only, no dense mask (JAX propagate.py:612-625, 690-702).
+    The products are float32 as in the JAX package; the sums are float64,
+    so their order (index_add_'s atomics on the card) moves no decision."""
+    n, k = knn_idx.shape
+    jj = torch.arange(n, device=IT.device).repeat_interleave(k)
+    ii = knn_idx.reshape(-1)
+    ok = (ii >= 0) & (ii < n)
+    jj, ii = jj[ok], ii[ok]
+    vals = (IT[jj, ii][None, :] * wq[:, jj]).double()
+    out = torch.zeros((wq.shape[0], n), dtype=torch.float64, device=IT.device)
+    return out.index_add_(1, ii, vals)
+
+
+def xie_propagation_points(pts, eps: float = 1e-2, diffuse: bool = False,
+                           starting_point: int = 0, C: float = 3.0,
+                           knn_mask: int = -1, device="cuda") -> np.ndarray:
+    """Sequential mirror-field propagation (reference field_utils.py:536-563,
+    JAX propagate.py:558-609). Returns a new oriented (N, 6) numpy array.
+
+    knn_mask > 0 keeps pair (i, j) iff i is among j's knn_mask nearest
+    targets, in (N, k) index form (no dense mask). eps is accepted and
+    ignored, as in the JAX package. diffuse re-votes every point by the
+    interaction of the whole signed cloud with it (I @ sign; float32 matmul,
+    TF32 off; the masked form sums the mask's pairs in float64)."""
+    dev = resolve_device(device)
+    pts = np.asarray(pts, dtype=np.float32)
+    n = len(pts)
+    if n <= 1:
+        return pts.copy()
+    if not 0 <= starting_point < n:
+        raise ValueError(f"starting point {starting_point} outside [0, {n})")
+    knn_idx = None
+    if knn_mask > 0:
+        knn_idx = torch.as_tensor(_knn_idx(pts, knn_mask), device=dev)
+    IT = fields.xie_interaction_matrix(as_f32(pts, dev), C=C, transposed=True)
+    _, sign_t = _xie_greedy(IT, starting_point, knn_idx)
+    sign = sign_t.cpu().numpy()
+    if diffuse:
+        # inter_i = sum_j I[i, j] sign_j = (sign @ I^T)_i, the whole
+        # (current) cloud's interaction with i, self included
+        if knn_idx is None:
+            inter = (sign_t @ IT).cpu().numpy().astype(np.float64)
+        else:
+            inter = _masked_inter(IT, knn_idx, sign_t[None, :])[0].cpu().numpy()
+        vote = np.where(inter * sign > 0, 1.0, -1.0).astype(np.float32)
+        sign = sign * vote
+    del IT
+    out = pts.copy()
+    out[:, 3:6] *= sign[:, None]
+    return out
+
+
+def xie_propagation_points_plus(pts, eps: float = 1e-2, diffuse: bool = False,
+                                starting_point: int = 0,
+                                device="cuda") -> np.ndarray:
+    """Dipole pass then xie pass (reference field_utils.py:532-534)."""
+    pts = strongest_field_propagation_points(pts, starting_point=starting_point,
+                                             device=device)
+    return xie_propagation_points(pts, eps, diffuse,
+                                  starting_point=starting_point, device=device)
+
+
+def replay_plain(I: torch.Tensor, orders: torch.Tensor, knn_idx=None, colw=None):
+    """Plain torch version of csrc/replay.cu: the XLA scan
+    propagate.py:_in_order_scan step for step (the kNN mask rebuilt from its
+    index form each step), its row sums in float64. Returns (w (T, N)
+    float32, inter (T, N) float64)."""
+    if I.is_cuda:
+        PLAIN_CUDA_CALLS["replay"] += 1
+    T, steps = orders.shape
+    n, dev = I.shape[0], I.device
+    w = torch.zeros((T, n), dtype=torch.float32, device=dev)
+    inter = torch.zeros((T, n), dtype=torch.float64, device=dev)
+    rg = torch.arange(T, device=dev)
+    one = torch.tensor(1.0, device=dev)
+    for k in range(steps):
+        idx = orders[:, k]
+        rows = I.index_select(0, idx)
+        if knn_idx is not None:
+            hit = (knn_idx[None, :, :] == idx[:, None, None]).any(dim=-1)
+            rows = rows * hit.to(torch.float32)
+        if colw is not None:
+            rows = rows * colw[None, :]
+        it = (rows.double() * w.double()).sum(dim=1)
+        w[rg, idx] = torch.where(it < 0, -one, one)
+        inter[rg, idx] = it
+    return w, inter
+
+
+def _replay(I, orders, knn_idx, colw):
+    if I.device.type == "cpu":
+        return replay_plain(I, orders, knn_idx, colw)
+    return propagate_cuda.replay(I, orders, knn_idx, colw)
+
+
+def xie_propagation_in_order(pts, orders, eps: float = 1e-2,
+                             diffuse: bool = False, C: float = 3.0,
+                             knn_mask: int = -1, points_weight=None,
+                             kernel: str = "xie", device="cuda") -> np.ndarray:
+    """Order-driven batch replay (reference field_utils.py:569-605, JAX
+    propagate.py:706-766): T orders (T, S) advanced in lock-step against one
+    interaction matrix. Returns the (T, N) bool flip mask.
+
+    kernel="xie" is the fork's mirror field; kernel="dipole" the paper's
+    dipole interaction, whose matrix takes eps = 1e-6 whatever `eps` says,
+    as in the JAX package (propagate.py:754, 759); the xie replay ignores
+    eps. points_weight scales each source column (the reference's declared
+    intent). knn_mask > 0 keeps pair (i, j) iff i is among j's nearest, in
+    index form. diffuse re-votes every point by all recorded weights:
+    wq @ I^T (float32 matmul, TF32 off), or the mask's pairs in float64."""
+    dev = resolve_device(device)
+    if kernel not in ("xie", "dipole"):
+        raise ValueError(f"unknown kernel {kernel!r}")
+    pts = np.asarray(pts, dtype=np.float32)
+    n = len(pts)
+    orders = np.asarray(orders, dtype=np.int64)
+    if orders.ndim != 2 or orders.shape[1] > n or (
+            orders.size and (orders.min() < 0 or orders.max() >= n)):
+        raise ValueError(f"orders: expected (T, <= {n}) indices in [0, {n})")
+    knn_idx = colw = None
+    if knn_mask > 0:
+        knn_idx = torch.as_tensor(_knn_idx(pts, knn_mask), device=dev)
+    if points_weight is not None:
+        colw = as_f32(points_weight, dev).contiguous()
+    pts_t = as_f32(pts, dev)
+    if kernel == "xie":
+        I = fields.xie_interaction_matrix(pts_t, C=C)
+    else:
+        I = fields.dipole_interaction_matrix(pts_t, eps=1e-6)
+    w, inter = _replay(I, torch.as_tensor(orders, device=dev), knn_idx, colw)
+    if diffuse:
+        wq = w if colw is None else w * colw[None, :]
+        if knn_idx is None:
+            inter = wq @ I.t()
+        else:
+            inter = _masked_inter(I.t(), knn_idx, wq)
+    del I
+    return (inter < 0).cpu().numpy()
+
+
+def xie_propagation_bfs_tree(pts, eps: float = 1e-2, diffuse: bool = False,
+                             starting_point: int = 0, k: int = 10,
+                             threshold: float = 0.1, times: int = 1,
+                             use_pw: bool = False, knn_mask: int = -1,
+                             C: float = 3.0, kernel: str = "xie",
+                             mesh=None, device="cuda"):
+    """Multi-start BFS-tree propagation with vote alignment (reference
+    field_utils.py:657-710, JAX propagate.py:769-807): `times` BFS orders
+    from a thresholded kNN graph, replayed in lock-step, the runs aligned by
+    solving the binary pairwise XOR problem exactly (replacing Gurobi), the
+    flips majority-voted. mesh above one device raises (the multi-device
+    slice). Returns (oriented_pts, flip_mask)."""
+    from dipole_tpu_torch.api import resolve_mesh
+
+    resolve_mesh(mesh)
+    if times <= 0 or times % 2 != 1:
+        raise ValueError("times must be a positive odd number")
+    pts = np.asarray(pts, dtype=np.float32)
+    orders, points_weight = bfs_orders(pts, starting_point, k=k,
+                                       threshold=threshold, times=times,
+                                       use_pw=use_pw)
+    flips = xie_propagation_in_order(
+        pts, orders, eps=eps, diffuse=diffuse, C=C, knn_mask=knn_mask,
+        points_weight=points_weight, kernel=kernel, device=device).T
+    return align_and_vote(pts, flips)
+
+
+def bfs_orders(pts, starting_point: int = 0, k: int = 10,
+               threshold: float = 0.1, times: int = 1, use_pw: bool = False):
+    """The host half of the BFS-tree pipeline (JAX propagate.py:810-837):
+    thresholded kNN graph + `times` BFS orders from the reference's seeded
+    random starts (field_utils.py:661-687). Returns (orders (T, N),
+    points_weight or None)."""
+    pts = np.asarray(pts, dtype=np.float32)
+    n = len(pts)
+    rs = np.random.RandomState(0)
+    starting_points = [starting_point]
+    while len(np.unique(starting_points)) < times:
+        t = rs.randint(0, n)
+        if t not in starting_points:
+            starting_points.append(t)
+
+    G, mean_k_dist = graphs.emst_from_pc(pts[:, :3], k, threshold)
+    points_weight = mean_k_dist if use_pw else None
+    orders = np.zeros((times, n), dtype=np.int32)
+    for i in range(times):
+        orders[i] = G.get_bfs_route(starting_points[i])
+    return orders, points_weight
+
+
+def align_and_vote(pts, flips):
+    """Align the T replayed runs (exact binary enumeration of the pairwise
+    XOR objective, replacing Gurobi) and majority-vote the flips (reference
+    field_utils.py:696-709, JAX propagate.py:840-857). flips: (N, T).
+    Returns (oriented, flip_mask)."""
+    pts = np.asarray(pts, np.float32)
+    n, times = flips.shape
+    fl = flips.astype(np.int64)
+    disagree = (fl[:, :, None] != fl[:, None, :]).sum(axis=0)
+    A = disagree.astype(np.float64)
+    B = (n - disagree).astype(np.float64)
+    status = solve.miqp_min(A, B).astype(bool)
+    aligned = flips ^ status[None, :]
+    flip_mask = aligned.sum(axis=1) > times / 2
+    out = pts.copy()
+    out[flip_mask, 3:6] *= -1
+    return out, flip_mask

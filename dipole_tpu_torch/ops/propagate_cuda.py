@@ -1,16 +1,25 @@
 """Wrapper of the greedy kernel `csrc/greedy.cu`, which replaces
 dipole_tpu/ops/propagate_pallas.py's three Pallas greedy kernels
 (_greedy_kernel, _greedy_streamed_kernel, _greedy_xl_kernel) with one
-cooperative CUDA kernel, in two update modes:
+cooperative CUDA kernel, in three update modes:
 
   greedy_rows     the matrix tier: reads row c of a precomputed (N, N) I;
-  greedy_columns  the on-the-fly tier: computes column c from the cloud.
+  greedy_columns  the on-the-fly tier: computes column c from the cloud;
+  xie_greedy      the mirror-field loop (replaces the XLA scan
+                  propagate.py:_xie_greedy_scan): reads row c of the
+                  transposed xie matrix, with an optional kNN mask in index
+                  form;
+
+and of `csrc/replay.cu`, the in-order replay (replaces the XLA scan
+propagate.py:_in_order_scan): T orders in lock-step over one matrix.
 
 The wrappers take CUDA tensors only (the plain versions and the CPU dispatch
 live in ops/propagate.py), allocate outputs and scratch with torch.empty,
 launch on the current stream, raise on a CUDA error and count launches in
-LAUNCHES. Kernel and plain version agree bit for bit in acc and sign (the
-kernel is built with -fmad=false; see the note in csrc/greedy.cu).
+LAUNCHES. Greedy kernels and plain versions agree bit for bit in acc and
+sign (the kernel is built with -fmad=false; see the note in csrc/greedy.cu);
+the replay and its plain version take the same decisions (float64 sums in
+two orders; see csrc/replay.cu).
 """
 from __future__ import annotations
 
@@ -21,15 +30,18 @@ import torch
 from dipole_tpu_torch.ops import _build
 from dipole_tpu_torch.ops.fields_cuda import check_tensor
 
-__all__ = ["greedy_rows", "greedy_columns", "LAUNCHES", "last_grid"]
+__all__ = ["greedy_rows", "greedy_columns", "xie_greedy", "replay",
+           "reverse_knn", "LAUNCHES", "last_grid"]
 
-LAUNCHES = {"greedy_rows": 0, "greedy_columns": 0}
+LAUNCHES = {"greedy_rows": 0, "greedy_columns": 0, "greedy_xie": 0, "replay": 0}
 _PART_CAPACITY = 1024   # candidate slots per parity; the grid never exceeds it
+_max_clusters: dict = {}   # (device, cluster size) -> replay clusters at once
+_P_, _N_ = ctypes.c_void_p, ctypes.c_int
 _grid = {"blocks": 0}
 
 
 def last_grid() -> int:
-    """Grid size (blocks) of the latest greedy launch."""
+    """Grid size (blocks) of the latest greedy or replay launch."""
     return _grid["blocks"]
 
 
@@ -76,3 +88,129 @@ def greedy_columns(pts: torch.Tensor, start: int, eps: float):
     check_tensor(pts, "pts", 6)
     planes = pts.t().contiguous()      # (6, N) channel-major for coalescing
     return _launch(planes, pts.shape[0], start, eps, False)
+
+
+def _check_knn(knn_idx: torch.Tensor | None, n: int, device) -> None:
+    if knn_idx is None:
+        return
+    if (not isinstance(knn_idx, torch.Tensor) or knn_idx.device != device
+            or knn_idx.dim() != 2 or knn_idx.shape[0] != n):
+        raise ValueError("knn_idx: expected an (N, k) index tensor on the "
+                         "matrix's device")
+
+
+def xie_greedy(IT: torch.Tensor, start: int, knn_idx: torch.Tensor | None = None):
+    """(acc, sign) of the sequential xie loop over the transposed (N, N) xie
+    matrix IT (row c is column c of I), from `start`; knn_idx (N, k): the
+    kNN mask in index form (row j: the targets kept for source j)."""
+    check_tensor(IT, "IT")
+    n = IT.shape[0]
+    if IT.shape[1] != n:
+        raise ValueError(f"IT: expected a square matrix, got {tuple(IT.shape)}")
+    if not 0 <= start < n:
+        raise ValueError(f"starting point {start} outside [0, {n})")
+    _check_knn(knn_idx, n, IT.device)
+    k = 0 if knn_idx is None else knn_idx.shape[1]
+    if k > 256:
+        raise ValueError(f"knn mask of {k} neighbours: the kernel takes at most 256")
+    lib, fn = _build.entry("greedy", "dipole_xie_greedy",
+                           [_P_, _N_, _N_, _P_, _N_, _P_, _P_, _P_, _P_, _P_, _P_,
+                            _N_, ctypes.POINTER(ctypes.c_int), _P_])
+    dev = IT.device
+    knn = None if knn_idx is None else knn_idx.to(torch.int32).contiguous()
+    acc = torch.empty(n, dtype=torch.float32, device=dev)
+    rate = torch.empty(n, dtype=torch.float32, device=dev)
+    sign = torch.empty(n, dtype=torch.float32, device=dev)
+    part_v = torch.empty(2 * _PART_CAPACITY, dtype=torch.float32, device=dev)
+    part_i = torch.empty(2 * _PART_CAPACITY, dtype=torch.int32, device=dev)
+    part_a = torch.empty(2 * _PART_CAPACITY, dtype=torch.float32, device=dev)
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(IT.data_ptr(), n, int(start), 0 if knn is None else knn.data_ptr(),
+                 k, acc.data_ptr(), rate.data_ptr(), sign.data_ptr(),
+                 part_v.data_ptr(), part_i.data_ptr(), part_a.data_ptr(),
+                 _PART_CAPACITY, ctypes.byref(blocks), stream)
+    _build.check(lib, err, "dipole_xie_greedy")
+    LAUNCHES["greedy_xie"] += 1
+    _grid["blocks"] = blocks.value
+    return acc, sign
+
+
+def reverse_knn(knn_idx: torch.Tensor, n: int):
+    """(rev_ptr (N + 1,), rev_src) int32: for each target i the sources j
+    with i in knn_idx[j], ascending and each once — the kNN mask's rows.
+    Entries outside [0, N) select nothing."""
+    k = knn_idx.shape[1]
+    tgt = knn_idx.reshape(-1).to(torch.int64)
+    src = torch.arange(n, device=knn_idx.device).repeat_interleave(k)
+    ok = (tgt >= 0) & (tgt < n)
+    keys = torch.unique(tgt[ok] * n + src[ok])          # sorted: target, source
+    counts = torch.bincount(keys // n, minlength=n)
+    rev_ptr = torch.zeros(n + 1, dtype=torch.int32, device=knn_idx.device)
+    rev_ptr[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    return rev_ptr, (keys % n).to(torch.int32).contiguous()
+
+
+def _clusters_at_once(lib, dev, size: int) -> int:
+    """How many clusters of `size` blocks of the replay the card runs at
+    once (cached per device)."""
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), size)
+    if key not in _max_clusters:
+        count = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _build.check(lib, lib.dipole_replay_max_clusters(size, ctypes.byref(count)),
+                         "dipole_replay_max_clusters")
+        _max_clusters[key] = count.value
+    return _max_clusters[key]
+
+
+def replay(I: torch.Tensor, orders: torch.Tensor,
+           knn_idx: torch.Tensor | None = None,
+           colw: torch.Tensor | None = None, cluster: int | None = None):
+    """(w (T, N) float32, inter (T, N) float64) of the in-order replay of
+    orders (T, S) over the (N, N) matrix I (rows read); knn_idx (N, k): the
+    kNN mask in index form; colw (N,): per-source column weights. Unmasked,
+    each order runs on a cluster of `cluster` blocks: by default 16 while
+    the card runs all T such clusters at once, else 8 (the faster choice on
+    the H100; PERF.md)."""
+    check_tensor(I, "I")
+    n = I.shape[0]
+    if I.shape[1] != n:
+        raise ValueError(f"I: expected a square matrix, got {tuple(I.shape)}")
+    dev = I.device
+    if (not isinstance(orders, torch.Tensor) or orders.device != dev
+            or orders.dim() != 2):
+        raise ValueError("orders: expected a (T, S) index tensor on the matrix's device")
+    T, steps = orders.shape
+    if steps > 0 and (int(orders.min()) < 0 or int(orders.max()) >= n):
+        raise ValueError(f"orders: indices outside [0, {n})")
+    _check_knn(knn_idx, n, dev)
+    if colw is not None:
+        check_tensor(colw, "colw", ndim=1)
+        if colw.shape[0] != n or colw.device != dev:
+            raise ValueError("colw: expected (N,) on the matrix's device")
+    lib, fn = _build.entry("replay", "dipole_replay",
+                           [_P_, _N_, _P_, _N_, _N_, _P_, _P_, _P_, _N_, _P_, _P_, _P_])
+    rev_ptr = rev_src = None
+    if knn_idx is not None:
+        rev_ptr, rev_src = reverse_knn(knn_idx, n)
+        cluster = 0                       # one warp per order
+    elif cluster is None:
+        cluster = 16 if T <= _clusters_at_once(lib, dev, 16) else 8
+    elif cluster not in (8, 16):
+        raise ValueError(f"cluster: 8 or 16 blocks, got {cluster}")
+    o = orders.to(torch.int32).contiguous()
+    w = torch.zeros((T, n), dtype=torch.float32, device=dev)
+    inter = torch.zeros((T, n), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(I.data_ptr(), n, o.data_ptr(), T, steps,
+                 0 if colw is None else colw.data_ptr(),
+                 0 if rev_ptr is None else rev_ptr.data_ptr(),
+                 0 if rev_src is None else rev_src.data_ptr(), cluster,
+                 w.data_ptr(), inter.data_ptr(), stream)
+    _build.check(lib, err, "dipole_replay")
+    LAUNCHES["replay"] += 1
+    _grid["blocks"] = T * max(cluster, 1)
+    return w, inter

@@ -112,8 +112,10 @@ def test_main_path_takes_kernels_only(cuda_device):
         counts.update({k: 0 for k in counts})
     api.orient_simple(sphere(500, 6), device=cuda_device)
     assert fields_cuda.LAUNCHES == {"dipole_potential": 1, "dipole_imatrix": 1,
-                                    "dipole_field": 0, "dipole_group": 0}
-    assert propagate_cuda.LAUNCHES == {"greedy_rows": 1, "greedy_columns": 0}
+                                    "dipole_field": 0, "dipole_group": 0,
+                                    "xie_imatrix": 0}
+    assert propagate_cuda.LAUNCHES == {"greedy_rows": 1, "greedy_columns": 0,
+                                       "greedy_xie": 0, "replay": 0}
     assert not any(fields.PLAIN_CUDA_CALLS.values())
     assert not any(propagate.PLAIN_CUDA_CALLS.values())
 
@@ -243,3 +245,117 @@ def test_orient_patches_on_card_near_cpu(cuda_device):
     got = api.orient_patches(pc, device=cuda_device, **kw)
     want = api.orient_patches(pc, device="cpu", **kw)
     assert ((got[:, 3:] * want[:, 3:]).sum(1) > 0).mean() >= 0.99
+
+
+def _ellipsoid(n, seed):
+    r = np.random.default_rng(seed)
+    v = r.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    a = np.array([1.0, 0.7, 0.5])
+    nrm = v / a
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return np.concatenate([v * a, nrm], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,C", [(1, 3.0), (1000, 3.0), (2049, 2.5)])
+def test_xie_matrix_kernel_is_bit_equal_in_both_layouts(cuda_device, n, C):
+    pc = torch.as_tensor(sphere(n, 15), device=cuda_device)
+    if n > 100:
+        pc[n - 50:] = pc[:50]                    # coincident pairs: n . n
+    tgt = torch.as_tensor(sphere(333, 16), device=cuda_device) * 1.5
+    for targets in (None, tgt):
+        t = pc if targets is None else targets
+        I = fields.xie_interaction_matrix(pc, C=C, targets=targets)
+        IT = fields.xie_interaction_matrix(pc, C=C, targets=targets, transposed=True)
+        assert torch.equal(I, fields.xie_interaction_matrix_plain(t, pc, C))
+        assert torch.equal(IT, I.t())
+
+
+@pytest.mark.parametrize("n,k", [(2, 0), (3072, 8), (4000, 0), (4000, 8)])
+def test_xie_greedy_kernel_is_bit_equal(cuda_device, n, k):
+    from dipole_tpu_torch.ops.propagate import _knn_idx
+
+    pc = sphere(n, 17)
+    IT = fields.xie_interaction_matrix(torch.as_tensor(pc, device=cuda_device),
+                                       transposed=True)
+    knn = torch.as_tensor(_knn_idx(pc, k), device=cuda_device) if k else None
+    got = propagate_cuda.xie_greedy(IT, n - 1, knn)
+    want = propagate.xie_greedy_plain(IT, n - 1, knn)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if n > 3072:
+        assert propagate_cuda.last_grid() > 1
+
+
+@pytest.mark.parametrize("T,masked,weighted", [(1, False, False), (3, True, False),
+                                               (9, False, True), (17, True, True)])
+def test_replay_kernel_takes_the_plain_decisions(cuda_device, T, masked, weighted):
+    from dipole_tpu_torch.ops.propagate import _knn_idx
+
+    n = 700
+    pc = sphere(n, 18)
+    r = np.random.default_rng(T)
+    I = fields.xie_interaction_matrix(torch.as_tensor(pc, device=cuda_device))
+    orders = torch.as_tensor(np.stack([r.permutation(n) for _ in range(T)]),
+                             device=cuda_device)
+    knn = torch.as_tensor(_knn_idx(pc, 8), device=cuda_device) if masked else None
+    colw = (torch.as_tensor(r.uniform(0.2, 1.0, n).astype(np.float32),
+                            device=cuda_device) if weighted else None)
+    w_p, i_p = propagate.replay_plain(I, orders, knn, colw)
+    # 8- and 16-block clusters and the automatic choice (the masked replay
+    # has one mode)
+    for cluster in ((None,) if masked else (8, 16, None)):
+        w_k, i_k = propagate_cuda.replay(I, orders, knn, colw, cluster)
+        assert torch.equal(w_k, w_p) and torch.equal(i_k < 0, i_p < 0)
+        # float64 sums in two orders: 1e-6 of the largest recorded |inter|
+        assert float((i_k - i_p).abs().max()) <= 1e-6 * float(i_p.abs().max())
+
+
+def test_xie_wrappers_check_their_inputs(cuda_device):
+    I = fields.xie_interaction_matrix(torch.as_tensor(sphere(64, 19), device=cuda_device))
+    with pytest.raises(ValueError, match="square"):
+        propagate_cuda.xie_greedy(I[:10].contiguous(), 0)
+    with pytest.raises(ValueError, match="starting point"):
+        propagate_cuda.xie_greedy(I, 64)
+    with pytest.raises(ValueError, match="at most 256"):
+        propagate_cuda.xie_greedy(I, 0, torch.zeros((64, 300), dtype=torch.int64,
+                                                     device=cuda_device))
+    with pytest.raises(ValueError, match="outside"):
+        propagate_cuda.replay(I, torch.full((1, 64), 64, device=cuda_device))
+    with pytest.raises(MemoryError, match="needs 4000.00 GB"):
+        fields_cuda.matrix_out(10**6, 10**6, cuda_device, "xie_imatrix")
+
+
+def test_xie_paths_take_kernels_only(cuda_device):
+    from dipole_tpu_torch.ops import propagate as prop
+
+    counts = (fields_cuda.LAUNCHES, propagate_cuda.LAUNCHES,
+              fields.PLAIN_CUDA_CALLS, prop.PLAIN_CUDA_CALLS)
+    for c in counts:
+        c.update({k: 0 for k in c})
+    pc = _ellipsoid(3000, 20)[:, :3]
+    for method in ("xie", "tree_xie"):
+        api.orient(pc, method=method, device=cuda_device)
+    assert fields_cuda.LAUNCHES["xie_imatrix"] == 2
+    assert propagate_cuda.LAUNCHES["greedy_xie"] == 1
+    assert propagate_cuda.LAUNCHES["replay"] == 1
+    assert not any(fields.PLAIN_CUDA_CALLS.values())
+    assert not any(prop.PLAIN_CUDA_CALLS.values())
+
+
+@pytest.mark.parametrize("method", ["xie", "tree_xie", "hoppe"])
+def test_orient_xie_methods_on_card_match_cpu(cuda_device, method):
+    gt = _ellipsoid(3000, 21)
+    got = api.orient(gt[:, :3], method=method, device=cuda_device)
+    want = api.orient(gt[:, :3], method=method, device="cpu")
+    assert ((got[:, 3:] * want[:, 3:]).sum(1) > 0).mean() >= 0.999
+
+
+def test_graph_dipole_on_card_near_cpu(cuda_device):
+    from dipole_tpu_torch.ops.metrics import sign_agreement
+    from dipole_tpu_torch.pipelines import graph_dipole as gd
+
+    gt = sphere(2000, 22, scramble=False)
+    scr = sphere(2000, 22)
+    out, *_ = gd.graph_dipole_core(scr.copy(), n_part=4, device=cuda_device)
+    ref, *_ = gd.graph_dipole_core(scr.copy(), n_part=4, device="cpu")
+    assert abs(sign_agreement(out, gt) - sign_agreement(ref, gt)) <= 0.02

@@ -24,6 +24,9 @@ import dipole_tpu_torch.models.checkpoints, dipole_tpu_torch.models.pointcnn
 import dipole_tpu_torch.models.inference
 import dipole_tpu_torch.native, dipole_tpu_torch.utils.config
 import dipole_tpu_torch.utils.prng
+import dipole_tpu_torch.graphs, dipole_tpu_torch.ops.solve
+import dipole_tpu_torch.serve.handlers, dipole_tpu_torch.pipelines.graph_dipole
+import dipole_tpu_torch.cli.graph_dipole, dipole_tpu_torch.ops.propagate_cuda
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "dipole_tpu" or m.startswith("dipole_tpu.")]
