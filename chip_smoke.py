@@ -7,7 +7,7 @@ kernel of those paths against its plain torch version.
 
 Phases, one JSON line each:
   1. device     name, count, nvidia-smi name and power limit; no CUDA -> fail
-  2. build      nvcc of the eight dipole_tpu_torch/csrc/*.cu for sm_90a;
+  2. build      nvcc of the nine dipole_tpu_torch/csrc/*.cu for sm_90a;
                 seconds, ptxas registers and spills
   3. checks     each kernel against its plain version on the card:
                 potential 1000 lattice targets x 180k sources (+ a lattice
@@ -32,7 +32,19 @@ Phases, one JSON line each:
                 for 1, 3 and 9 orders, xie and dipole matrices, kNN mask and
                 points_weight on and off, 8- and 16-block clusters: identical
                 decisions, recorded interactions within 1e-6 of sum |I w|;
-                the diffuse replay and the diffuse xie, card against CPU
+                the diffuse replay and the diffuse xie, card against CPU;
+                the tensor-core field variants (csrc/field_mma.cu) on the
+                tool's data at 4096 x 3001 and 777 x 20000, per target
+                within 1e-5 (exact) and 5e-5 (expansion) of S_t = sum_s
+                (|b||p| + |a|(|s| + |t|)): the exact one with a target on a
+                source (= the field of the other sources) and duplicate
+                sources, the expansion where no pair is nearer than 0.02
+                (near pairs cancel there, its documented behaviour); then
+                both on the tool's own data at its full 65536 x 262144,
+                exact within 1e-5 S_t, expansion (near pairs) 1e-3 S_t, the
+                plain versions timed there. A control build of
+                field_mma.cu with a one-pass TF32 output reduction must
+                fail at least one check of each variant
   4. main path  api.orient_simple(device="cuda") on a 10000-point 6-column
                 scrambled ellipsoid (matrix tier, diffuse) and a 180000-point
                 3-column ellipsoid (normal estimation + column tier); launch
@@ -55,7 +67,11 @@ Phases, one JSON line each:
                 (grid, 10 parts) through its CLI on the 10000-point cloud
                 written to a .ply; GT sign agreement >= 0.95 each; orient
                 xie and tree_xie at 2000 points give the same signs on the
-                card as on the CPU
+                card as on the CPU. Then the tool `python -m
+                dipole_tpu_torch.tools.mxu_field_experiment` through its
+                main() at 65536 x 262144: GPairs/s of "current" (field.cu)
+                and both tensor-core kernels, their rel max diff and sign
+                agreement; each kernel launched, no plain version called
   5. timing     CUDA-event times of each kernel and its plain version at the
                 main path's shapes, the bound of each; there the imatrix
                 (10k) and the greedy (10k rows, 180k columns on the full
@@ -73,7 +89,11 @@ Phases, one JSON line each:
                 30000 (I) and 10000 (I^T), the xie greedy at 10000, the
                 replay of the tree_xie run's 3 BFS orders at 30000 with 8-
                 and 16-block clusters and the automatic choice, and of 9
-                orders (graph_dipole's vote count) at 10000
+                orders (graph_dipole's vote count) at 10000. The
+                tensor-core kernels at the tool's shape: their ms from the
+                tool's run, their plain versions' from the checks, their
+                bounds counting the CUDA-core pair math at the fp32 peak
+                against the 3xTF32 products at the TF32 peak
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero before the
@@ -95,6 +115,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 PEAK_FLOPS_F32 = 67e12        # H100 SXM fp32, outside the tensor cores
+PEAK_FLOPS_TF32 = 494.7e12    # H100 SXM dense TF32, the tensor cores
 # arithmetic operations per pair / entry, counted from the kernels' formulas
 # (add, sub, mul, div and sqrt one each)
 OPS_POTENTIAL = 17
@@ -108,6 +129,21 @@ OPS_FPS = 10                  # d2, the running minimum and the argmax
 OPS_XIE = 31                  # the xie entry (common.cuh's xie_pair)
 OPS_GREEDY_XIE = 4            # rate update (2), acc += rate, the compare
 OPS_REPLAY = 2                # one multiply-add per entry and order
+# the tensor-core field variants, per pair: the pair math left on the CUDA
+# cores, and the products (x 3 passes of 3xTF32) on the tensor cores
+OPS_MXU = {"field_mxu_exact": (21, 16), "field_mxu_expansion": (12, 28)}
+TF32_PASSES = 3
+MXU_SHAPE = (65536, 262144)   # the tool's panel, targets x sources
+# per-target limits of the tensor-core variants against their plain versions,
+# in units of S_t: the exact one everywhere, the expansion where no pair is
+# nearer than MXU_APART; on the tool's data (near pairs, where the
+# expansion's r^2 cancels) the expansion is held to MXU_RTOL_NEAR_PAIRS
+MXU_RTOL = {"field_mxu_exact": 1e-5, "field_mxu_expansion": 5e-5}
+MXU_RTOL_NEAR_PAIRS = 1e-3
+MXU_APART = 0.02
+# csrc/field_mma.cu built with its output reduction in one TF32 pass: the
+# control that the limits above must reject
+MXU_CONTROL = ROOT / "dipole_tpu_torch" / "_build" / "control" / "libfield_mma_1pass.so"
 MODELS = [ROOT / "pre_trained_tpu" / f"dipole_{i}.pt" for i in range(3)]
 
 KERNELS = {
@@ -133,6 +169,10 @@ KERNELS = {
                    "dipole_tpu/ops/propagate.py:509"),
     "replay": ("dipole_tpu_torch/csrc/replay.cu",
                "dipole_tpu/ops/propagate.py:649"),
+    "field_mxu_exact": ("dipole_tpu_torch/csrc/field_mma.cu",
+                        "tools/mxu_field_experiment.py:26"),
+    "field_mxu_expansion": ("dipole_tpu_torch/csrc/field_mma.cu",
+                            "tools/mxu_field_experiment.py:67"),
 }
 LIBRARY_CALLS = {"knn": "torch.topk(d2, k, largest=False) on the precomputed d2"}
 
@@ -244,9 +284,12 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, n_tf32_ops: float = 0.0):
+    """(least ms, "bytes" or "operations"): the bytes over the memory rate
+    against the fp32 operations on the CUDA cores and the TF32 operations on
+    the tensor cores, each over its peak (the two units run side by side)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FLOPS_F32 * 1e3
+    t_ops = max(n_ops / PEAK_FLOPS_F32, n_tf32_ops / PEAK_FLOPS_TF32) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -289,7 +332,19 @@ def phase_build() -> None:
     from dipole_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    paths = _build.build_all()
+    MXU_CONTROL.parent.mkdir(parents=True, exist_ok=True)
+    control = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DFIELD_MMA_OUTPUT_PASSES=1", "-o",
+         str(MXU_CONTROL), str(_build.CSRC / "field_mma.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        paths = _build.build_all()
+        out, _ = control.communicate(timeout=600)
+    finally:
+        if control.poll() is None:
+            control.kill()
+            control.wait()
+    require(control.returncode == 0, f"nvcc of the field_mma control failed:\n{out}")
     secs = time.perf_counter() - t0
     for name in _build.SOURCES:
         _build.library(name)
@@ -507,10 +562,11 @@ def phase_checks_patch(dev) -> dict:
 def _all_counts():
     from dipole_tpu_torch.ops import (fields, fields_cuda, neighbors,
                                       neighbors_cuda, propagate, propagate_cuda)
+    from dipole_tpu_torch.tools import mxu_field_experiment as mxu
 
     return ((fields_cuda.LAUNCHES, propagate_cuda.LAUNCHES, neighbors_cuda.LAUNCHES),
             (fields.PLAIN_CUDA_CALLS, propagate.PLAIN_CUDA_CALLS,
-             neighbors.PLAIN_CUDA_CALLS))
+             neighbors.PLAIN_CUDA_CALLS, mxu.PLAIN_CUDA_CALLS))
 
 
 def _reset_counts():
@@ -1149,6 +1205,156 @@ def phase_timing_xie(gt10, gt30, dev) -> dict:
     return res
 
 
+def _mxu_fns(name):
+    from dipole_tpu_torch.ops import fields_cuda
+    from dipole_tpu_torch.tools import mxu_field_experiment as mxu
+
+    return getattr(fields_cuda, name), getattr(mxu, f"{name}_plain")
+
+
+def _mxu_control(name, s, t):
+    """The one-pass control (MXU_CONTROL, built in the build phase) on s, t."""
+    import ctypes
+
+    fn = getattr(ctypes.CDLL(str(MXU_CONTROL)), f"dipole_{name}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+    out = torch.empty((t.shape[0], 3), dtype=torch.float32, device=t.device)
+    err = fn(s.data_ptr(), s.shape[0], t.data_ptr(), t.shape[0], 1e-5,
+             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"{name} control: CUDA error {err}")
+    return out
+
+
+def _mxu_check(name, s, t, rtol, failures, got=None, want=None, scale=None,
+               control=True, **info) -> dict:
+    """The kernel (or `got`) against its plain version (or `want`) per
+    target, |kernel - plain| <= rtol S_t with S_t = sum_s (|b||p| + |a|(|s|
+    + |t|)); with `control`, the one-pass control's reading against the same
+    limit too. Emit the check line, add a failure to `failures` and return
+    the line."""
+    from dipole_tpu_torch.tools import mxu_field_experiment as mxu
+
+    kernel, plain = _mxu_fns(name)
+    got = kernel(s, t, 1e-5) if got is None else got
+    want = plain(s, t, 1e-5) if want is None else want
+    scale = mxu.tolerance_scale(s, t) if scale is None else scale
+
+    def over_tol(out):
+        return float(((out - want).abs().double() / (rtol * scale[:, None])).max())
+
+    line = {"phase": "check", "kernel": name, "rtol_of_sum_abs_terms": rtol,
+            "max_abs_err": float((got - want).abs().max()),
+            "max_err_over_tol": over_tol(got),
+            "finite": bool(torch.isfinite(got).all()), **info}
+    if control:
+        line["control_1pass_max_err_over_tol"] = over_tol(_mxu_control(name, s, t))
+    emit(line)
+    if not (line["finite"] and line["max_err_over_tol"] <= 1.0):
+        failures.append(f"{name}: error {line['max_err_over_tol']} x its tolerance ({info})")
+    return line
+
+
+def phase_checks_mxu(dev):
+    """The tensor-core field variants against their plain versions, the
+    one-pass control against the same limits. On the tool's data at 4096 x
+    3001 and 777 x 20000 (several 512-source chunks, S not a multiple of
+    512): the exact variant also with a target on a source (that pair gives
+    0: the field of the other sources) and duplicate sources; the expansion
+    where no pair is nearer than MXU_APART (near a coincident pair its r^2
+    cancels, its documented behaviour). Then both on the tool's own data at
+    its full shape, the plain versions timed there (one call each). The
+    one-pass control must fail at least one check of each variant.
+    Returns ({name: max abs difference}, {name: plain ms})."""
+    from dipole_tpu_torch.tools import mxu_field_experiment as mxu
+
+    exact, expansion = "field_mxu_exact", "field_mxu_expansion"
+    errs = {exact: 0.0, expansion: 0.0}
+    control = {exact: 0.0, expansion: 0.0}
+    failures = []
+
+    def check(name, *args, **kw):
+        line = _mxu_check(name, *args, failures, **kw)
+        errs[name] = max(errs[name], line["max_abs_err"])
+        control[name] = max(control[name], line.get("control_1pass_max_err_over_tol", 0.0))
+    for n_tgt, n_src in ((4096, 3001), (777, 20000)):
+        src, tgt, _ = mxu.tool_data(n_tgt, n_src)
+        s = torch.as_tensor(src, device=dev)
+        t = torch.as_tensor(tgt, device=dev)
+        s[n_src - 64:] = s[:64]                       # duplicate sources
+        t[0] = s[100, :3]                             # a target on a source
+        info = dict(targets=n_tgt, sources=n_src)
+        check(exact, s, t, MXU_RTOL[exact], duplicates=64, target_on_source=True,
+              **info)
+        kernel, _ = _mxu_fns(exact)
+        check(exact, torch.cat([s[:100], s[101:]]), t[:1], MXU_RTOL[exact],
+              got=kernel(s, t[:1], 1e-5), control=False,
+              what="the target on a source against the field of the other sources",
+              **info)
+        d = torch.cdist(t.double(), s[:, :3].double()).min(1).values
+        t = torch.where((d < MXU_APART)[:, None], t + 10.0, t)
+        check(expansion, s, t, MXU_RTOL[expansion], min_pair_distance=MXU_APART,
+              **info)
+    n_tgt, n_src = MXU_SHAPE
+    src, tgt, _ = mxu.tool_data(n_tgt, n_src)
+    s = torch.as_tensor(src, device=dev)
+    t = torch.as_tensor(tgt, device=dev)
+    scale = mxu.tolerance_scale(s, t)
+    plain_ms = {}
+    for name in (exact, expansion):
+        _, plain = _mxu_fns(name)
+        plain_ms[name], want = timed(lambda: plain(s, t, 1e-5))
+        rtol = MXU_RTOL[exact] if name == exact else MXU_RTOL_NEAR_PAIRS
+        check(name, s, t, rtol, want=want, scale=scale,
+              data="the tool's, near pairs included", targets=n_tgt, sources=n_src)
+    failures += [f"{name}: the one-pass control passes every check ({v} x)"
+                 for name, v in control.items() if not v > 1.0]
+    require(not failures, "; ".join(failures))
+    return errs, plain_ms
+
+
+def phase_main_path_mxu(launches) -> dict:
+    """The tool, `python -m dipole_tpu_torch.tools.mxu_field_experiment`,
+    through its main() at its full shape: the three variants, warm-up + best
+    of 5 each; the exact variant within 1e-3 of max|E| of "current" and 0.999
+    of its interaction signs (the expansion's lines are reported as the
+    tool prints them)."""
+    from dipole_tpu_torch.tools import mxu_field_experiment as mxu
+
+    n_tgt, n_src = MXU_SHAPE
+    res = _kernel_run(
+        f"mxu_field_experiment_{n_tgt}x{n_src}",
+        lambda timer: mxu.main(n_tgt, n_src, device="cuda"),
+        ("field_mxu_exact", "field_mxu_expansion", "dipole_field"), launches,
+        lambda r: {"tool": r})
+    for name, v in res["gpairs_per_s"].items():
+        require(np.isfinite(v) and v > 0, f"tool: {name} GPairs/s {v}")
+    require(res["rel_max_diff"]["mxu_exact"] <= 1e-3
+            and res["sign_agreement"]["mxu_exact"] >= 0.999,
+            f"tool: mxu_exact off current: {res}")
+    return res
+
+
+def phase_timing_mxu(tool: dict, plain_ms: dict) -> dict:
+    """Rows 11-12 at the tool's shape: each kernel's ms from the tool's run
+    (best of 5 by CUDA events), its plain version's from the checks phase,
+    and its bound: the CUDA-core pair math at the fp32 peak against the
+    3xTF32 products at the TF32 peak."""
+    n_tgt, n_src = MXU_SHAPE
+    pairs = n_tgt * n_src
+    res = {}
+    for name, (cuda_ops, tc_ops) in OPS_MXU.items():
+        b = bound_ms(24 * n_src + 12 * n_tgt + 12 * n_tgt, cuda_ops * pairs,
+                     TF32_PASSES * tc_ops * pairs)
+        res[name] = dict(shape=f"{n_tgt} targets x {n_src} sources",
+                         ms=tool["ms"][name.removeprefix("field_")],
+                         plain_ms=plain_ms[name], bound_ms=b[0], bound_by=b[1])
+    emit({"phase": "timing", "mxu_kernels": res,
+          "dipole_field_at_tool_shape_ms": tool["ms"]["current"]})
+    return res
+
+
 def main(argv) -> int:
     checks_only = "--checks-only" in argv
     info = phase_device()
@@ -1164,6 +1370,8 @@ def main(argv) -> int:
     errs = phase_checks(cloud180, gt10)
     errs.update(phase_checks_patch(dev))
     errs.update(phase_checks_xie(gt10, dev))
+    mxu_errs, mxu_plain_ms = phase_checks_mxu(dev)
+    errs.update(mxu_errs)
     if checks_only:
         emit({"phase": "done", "checks_only": True})
         return 0
@@ -1176,9 +1384,11 @@ def main(argv) -> int:
     hand_out = phase_main_path_patches(hand10, hand180, lion, launches)
     gt30 = ellipsoid(30000, SEED + 30)
     phase_main_path_xie(gt10, gt30, launches)
+    tool = phase_main_path_mxu(launches)
     timing = phase_timing(gt10, gt180, dev)
     timing.update(phase_timing_patches(hand_out, hand180, lion, dev))
     timing.update(phase_timing_xie(gt10, gt30, dev))
+    timing.update(phase_timing_mxu(tool, mxu_plain_ms))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

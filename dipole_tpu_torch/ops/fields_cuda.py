@@ -2,14 +2,17 @@
 dipole_tpu/ops/fields_pallas.py:_potential_kernel), `csrc/imatrix.cu`
 (fields_pallas.py:_dipole_imatrix_kernel and, as xie_imatrix,
 _xie_imatrix_kernel), `csrc/field.cu`
-(fields_pallas.py:_field_kernel) and `csrc/group.cu`
-(fields_pallas.py:_group_kernel).
+(fields_pallas.py:_field_kernel), `csrc/group.cu`
+(fields_pallas.py:_group_kernel) and `csrc/field_mma.cu`
+(tools/mxu_field_experiment.py:_field_kernel_mxu_exact and
+_field_kernel_mxu_expansion, the field with its sums on the tensor cores).
 
 A wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates its outputs with torch.empty, launches on the current
 stream, raises when the launch returns a CUDA error, and adds one to its
 count in LAUNCHES. The plain torch versions (and the CPU dispatch) live in
-ops/fields.py.
+ops/fields.py (of the tensor-core variants, in
+tools/mxu_field_experiment.py).
 """
 from __future__ import annotations
 
@@ -20,10 +23,12 @@ import torch
 from dipole_tpu_torch.ops import _build
 
 __all__ = ["potential", "dipole_imatrix", "xie_imatrix", "field_grad",
-           "point_group", "matrix_out", "LAUNCHES"]
+           "point_group", "matrix_out", "field_mxu_exact",
+           "field_mxu_expansion", "LAUNCHES"]
 
 LAUNCHES = {"dipole_potential": 0, "dipole_imatrix": 0, "dipole_field": 0,
-            "dipole_group": 0, "xie_imatrix": 0}
+            "dipole_group": 0, "xie_imatrix": 0, "field_mxu_exact": 0,
+            "field_mxu_expansion": 0}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int
@@ -179,3 +184,38 @@ def point_group(pts: torch.Tensor, group_ids: torch.Tensor, num_groups: int,
     _build.check(lib, err, "dipole_group")
     LAUNCHES["dipole_group"] += 1
     return out_t.t()
+
+
+def _field_mma(name: str, sources: torch.Tensor, targets: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    check_tensor(sources, "sources", 6)
+    check_tensor(targets, "targets", 3)
+    if sources.device != targets.device:
+        raise ValueError("sources and targets on different devices")
+    lib, fn = _build.entry("field_mma", f"dipole_{name}",
+                           [_P, _N, _P, _N, ctypes.c_float, _P, _P])
+    m, t = sources.shape[0], targets.shape[0]
+    out = torch.empty((t, 3), dtype=torch.float32, device=sources.device)
+    with torch.cuda.device(sources.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(sources.data_ptr(), m, targets.data_ptr(), t, float(eps),
+                 out.data_ptr(), stream)
+    _build.check(lib, err, f"dipole_{name}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def field_mxu_exact(sources: torch.Tensor, targets: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """E (T, 3) at targets (T, 3) from dipole sources (M, 6), the pair math
+    as csrc/field.cu and the sums as 3xTF32 tensor-core products, not
+    scrubbed — on the card, by csrc/field_mma.cu."""
+    return _field_mma("field_mxu_exact", sources, targets, eps)
+
+
+def field_mxu_expansion(sources: torch.Tensor, targets: torch.Tensor,
+                        eps: float) -> torch.Tensor:
+    """As field_mxu_exact, with r^2 and p.R from the expansion t.t + s.s -
+    2 t.s and p.s - t.p, t.s and t.p on the tensor cores too — on the card,
+    by csrc/field_mma.cu."""
+    return _field_mma("field_mxu_expansion", sources, targets, eps)

@@ -19,6 +19,7 @@ from pathlib import Path
 from dipole_tpu_torch import api
 from dipole_tpu_torch.ops import (estimate, fields, fields_cuda, neighbors,
                                   neighbors_cuda, propagate, propagate_cuda)
+from dipole_tpu_torch.tools import mxu_field_experiment as mxu
 from dipole_tpu_torch.utils.io import gen_grid
 
 CKPT = str(Path(__file__).resolve().parent.parent / "pre_trained_tpu" / "dipole_0.pt")
@@ -113,7 +114,8 @@ def test_main_path_takes_kernels_only(cuda_device):
     api.orient_simple(sphere(500, 6), device=cuda_device)
     assert fields_cuda.LAUNCHES == {"dipole_potential": 1, "dipole_imatrix": 1,
                                     "dipole_field": 0, "dipole_group": 0,
-                                    "xie_imatrix": 0}
+                                    "xie_imatrix": 0, "field_mxu_exact": 0,
+                                    "field_mxu_expansion": 0}
     assert propagate_cuda.LAUNCHES == {"greedy_rows": 1, "greedy_columns": 0,
                                        "greedy_xie": 0, "replay": 0}
     assert not any(fields.PLAIN_CUDA_CALLS.values())
@@ -359,3 +361,52 @@ def test_graph_dipole_on_card_near_cpu(cuda_device):
     out, *_ = gd.graph_dipole_core(scr.copy(), n_part=4, device=cuda_device)
     ref, *_ = gd.graph_dipole_core(scr.copy(), n_part=4, device="cpu")
     assert abs(sign_agreement(out, gt) - sign_agreement(ref, gt)) <= 0.02
+
+
+def _mxu_data(n_tgt, n_src, apart=0.0):
+    """The tool's data; with `apart`, targets closer than that to any source
+    are moved away (the expansion's cancellation is documented behaviour
+    there, not something to match)."""
+    src, tgt, _ = mxu.tool_data(n_tgt, n_src)
+    if apart:
+        d = torch.cdist(torch.as_tensor(tgt, dtype=torch.float64),
+                        torch.as_tensor(src[:, :3], dtype=torch.float64)).min(1).values
+        tgt[(d < apart).numpy()] += 10.0
+    return src, tgt
+
+
+@pytest.mark.parametrize("kernel", ["exact", "expansion"])
+@pytest.mark.parametrize("n_tgt,n_src", [(16, 8), (1, 1), (17, 9), (4096, 3001),
+                                         (777, 20000)])
+def test_mxu_field_kernels_match_plain(cuda_device, kernel, n_tgt, n_src):
+    src, tgt = _mxu_data(n_tgt, n_src, apart=0.02 if kernel == "expansion" else 0.0)
+    s = torch.as_tensor(src, device=cuda_device)
+    t = torch.as_tensor(tgt, device=cuda_device)
+    if kernel == "exact" and n_tgt > 16:
+        t[0] = s[3, :3]                          # a target on a source
+        s[n_src - 4:] = s[:4]                    # duplicate sources
+    got = getattr(fields_cuda, f"field_mxu_{kernel}")(s, t, 1e-5)
+    want = getattr(mxu, f"field_mxu_{kernel}_plain")(s, t, 1e-5)
+    # 3xTF32 products and sums in other orders: per target, 1e-5 (exact) and
+    # 5e-5 (expansion, whose r^2 cancels; no pair nearer than 0.02) of
+    # sum |terms|, chip_smoke.py's limits
+    rtol = 1e-5 if kernel == "exact" else 5e-5
+    scale = mxu.tolerance_scale(s, t)
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs().double() <= rtol * scale[:, None]).all())
+
+
+def test_mxu_tool_takes_kernels_only(cuda_device):
+    for c in (fields_cuda.LAUNCHES, fields.PLAIN_CUDA_CALLS, mxu.PLAIN_CUDA_CALLS):
+        c.update({k: 0 for k in c})
+    res = mxu.main(n_tgt=1000, n_src=3000, device=cuda_device)
+    assert fields_cuda.LAUNCHES["field_mxu_exact"] == 6
+    assert fields_cuda.LAUNCHES["field_mxu_expansion"] == 6
+    assert fields_cuda.LAUNCHES["dipole_field"] == 6
+    assert not any(mxu.PLAIN_CUDA_CALLS.values())
+    assert not any(fields.PLAIN_CUDA_CALLS.values())
+    assert res["sign_agreement"]["mxu_exact"] >= 0.99
+    with pytest.raises(ValueError, match="float32"):
+        fields_cuda.field_mxu_exact(torch.zeros((4, 6), dtype=torch.float64,
+                                                device=cuda_device),
+                                    torch.zeros((2, 3), device=cuda_device), 1e-5)
