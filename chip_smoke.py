@@ -15,7 +15,12 @@ Phases, one JSON line each:
                 |kernel - plain| <= 1e-4 |plain| + 1e-5 max|plain| on every
                 target (sums run in other orders); imatrix 4096 points with
                 duplicates, bit-equal; greedy row mode at 2000 and column
-                mode at 20000 points from a nonzero start, signs identical
+                mode at 20000 points from a nonzero start, and its launch
+                shapes: a cloud whose second half duplicates its first
+                (exact ties across blocks, state in registers and in global
+                memory), both sides of the register cap (a private cap),
+                of the one-block threshold and of a points-a-thread step,
+                one block of 8 points a thread and above it; signs identical
                 and acc bit-equal; the patch-pipeline kernels at quick sizes
                 and their edge cases: field (a target on a source, duplicate
                 sources; per component rtol 1e-4 + 1e-5 max|E|), group
@@ -30,8 +35,11 @@ Phases, one JSON line each:
                 bit-equal; the xie greedy at 2000 and 10000 points, with and
                 without a k = 8 kNN mask, acc and sign bit-equal; the replay
                 for 1, 3 and 9 orders, xie and dipole matrices, kNN mask and
-                points_weight on and off, 8- and 16-block clusters: identical
-                decisions, recorded interactions within 1e-6 of sum |I w|;
+                points_weight on and off, 1500 and 700 steps (no multiple
+                of the 128-step block), and orders that repeat indices,
+                orders shorter than N and orders over seven indices:
+                identical decisions, recorded interactions within 1e-6 of
+                sum |I w|;
                 the diffuse replay and the diffuse xie, card against CPU;
                 the tensor-core field variants (csrc/field_mma.cu) on the
                 tool's data at 4096 x 3001 and 777 x 20000, per target
@@ -76,20 +84,31 @@ Phases, one JSON line each:
                 main path's shapes, the bound of each; there the imatrix
                 (10k) and the greedy (10k rows, 180k columns on the full
                 grid) are held bit-equal to their plain versions too. The
-                greedy is timed on both sides of its one-block threshold.
+                column greedy at 20k, 50k, 100k and 180k on its own grid,
+                with the fit us a step = a + b N (a fit only: the grid
+                grows with N); on the full grid (one block an SM) at 1, 2,
+                4 and 8 points a thread, with the fit us a step = a + b P
+                (a: the exchange and the block's reductions; b: the sweep
+                of one point a thread); at 20480 points on 20 blocks up to
+                one an SM (the exchange against the block count); one block
+                against a grid from 1024 to 8192 points, both modes.
                 The patch kernels at the main path's largest calls: field
                 10000 sources x 180000 targets (transfer), group over the
                 lion's representatives, knn and fps on the lion's first
-                forward chunk; field and group held to their plain versions,
+                forward chunk, and knn at each of the forward's five calls
+                (self k = 20 at 512, 308 and 185 rows; the k = 16
+                interpolations 308 <- 185 and 512 <- 308) with its launches
+                per lion call; field and group held to their plain versions,
                 knn and fps bit-equal; kNN's library yardstick is one
                 torch.topk over the precomputed distances. One PointCNN
                 forward over that chunk is timed and traced (torch.profiler:
                 device busy share, the kernels that take the most time).
                 The xie slice's kernels at its shapes: the xie matrix at
                 30000 (I) and 10000 (I^T), the xie greedy at 10000, the
-                replay of the tree_xie run's 3 BFS orders at 30000 with 8-
-                and 16-block clusters and the automatic choice, and of 9
-                orders (graph_dipole's vote count) at 10000. The
+                replay of the tree_xie run's 3 BFS orders at 30000 and of 9
+                orders (graph_dipole's vote count) at 10000, and one replay
+                traced (torch.profiler: its bulk and decision kernels'
+                device time, the device's idle share). The
                 tensor-core kernels at the tool's shape: their ms from the
                 tool's run, their plain versions' from the checks, their
                 bounds counting the CUDA-core pair math at the fp32 peak
@@ -145,6 +164,8 @@ MXU_APART = 0.02
 # control that the limits above must reject
 MXU_CONTROL = ROOT / "dipole_tpu_torch" / "_build" / "control" / "libfield_mma_1pass.so"
 MODELS = [ROOT / "pre_trained_tpu" / f"dipole_{i}.pt" for i in range(3)]
+# launch counts of each main-path run, by its label
+RUN_COUNTS: dict = {}
 
 KERNELS = {
     "dipole_potential": ("dipole_tpu_torch/csrc/potential.cu",
@@ -417,23 +438,75 @@ def phase_checks(cloud180: torch.Tensor, cloud10: np.ndarray) -> dict:
          lambda: propagate_cuda.greedy_columns(cols, 123, 1e-6),
          lambda: propagate.greedy_columns_plain(cols, 123, 1e-6)),
     ]
-    for name, n, start, kernel, plain in cases:
+    cases += _greedy_launch_cases(cloud10, dev)
+    for name, n, start, kernel, plain, *what in cases:
         t0 = time.perf_counter()
         ka, ks = kernel()
+        launch = propagate_cuda.last_launch()
         pa, ps = plain()
         torch.cuda.synchronize()
         err = float((ka - pa).abs().max())
-        errs[name] = err
+        errs[name] = max(errs.get(name, 0.0), err)
         emit({"phase": "check", "kernel": name, "n": n, "start": start,
-              "blocks": propagate_cuda.last_grid(),
+              **(what[0] if what else {}), "launch": launch,
               "signs_identical": bool(torch.equal(ks, ps)),
               "acc_bit_equal": bool(torch.equal(ka, pa)),
               "acc_max_ulp": max_ulp(ka, pa), "max_abs_err": err,
               "seconds": time.perf_counter() - t0})
-        require(torch.equal(ks, ps), f"{name}: signs differ")
+        require(torch.equal(ks, ps), f"{name}: signs differ ({what})")
         require(bool((ks.abs() == 1).all()), f"{name}: a sign is not +-1")
-        require(torch.equal(ka, pa), f"{name}: acc not bit-equal")
+        require(torch.equal(ka, pa), f"{name}: acc not bit-equal ({what})")
+        if what and what[0]["ties"]:
+            h = n // 2
+            require(torch.equal(ka[:h], ka[h:2 * h]),
+                    f"{name}: the duplicated points' acc differ ({what})")
     return errs
+
+
+def _greedy_launch_cases(cloud10: np.ndarray, dev) -> list:
+    """The greedy's launch shapes against the plain version: a cloud whose
+    second half duplicates its first (exact ties in |acc|, each pair in two
+    blocks), both sides of the register cap (through the private cap: above
+    it the state lives in global memory), of the one-block threshold, of a
+    points-a-thread step and of one block's 8192 points."""
+    from dipole_tpu_torch.ops import fields, propagate, propagate_cuda
+
+    def rows(label, n, start=7, ties=False, **kw):
+        pts = torch.as_tensor(scramble(cloud10[:n], SEED + n), device=dev)
+        if ties:
+            pts[n // 2:] = pts[:n // 2]
+        I = fields.dipole_interaction_matrix(pts)
+        return ("greedy_rows", n, start,
+                lambda: propagate_cuda.greedy_rows(I, start, **kw),
+                lambda: propagate.greedy_rows_plain(I, start),
+                {"case": label, "ties": ties, **kw})
+
+    def cols(label, n, start=7, ties=False, **kw):
+        pts = torch.as_tensor(scramble(cloud10[:n], SEED + n + 1), device=dev)
+        if ties:
+            pts[n // 2:] = pts[:n // 2]
+        return ("greedy_columns", n, start,
+                lambda: propagate_cuda.greedy_columns(pts, start, 1e-6, **kw),
+                lambda: propagate.greedy_columns_plain(pts, start, 1e-6),
+                {"case": label, "ties": ties, **kw})
+
+    thr = propagate_cuda.one_block_max_n(True)
+    thr_cols = propagate_cuda.one_block_max_n(False)
+    return [
+        cols("ties across 6 blocks", 6000, ties=True, _blocks=6),
+        cols("ties, state in global memory", 6000, ties=True, _blocks=6, _reg_cap=1),
+        rows("ties across 6 blocks", 6000, ties=True, _blocks=6),
+        cols("at the register cap", 5000, _reg_cap=5000),
+        cols("above the register cap: global state", 5001, _reg_cap=5000),
+        rows("above the register cap: global state", 5001, _reg_cap=5000),
+        rows("one-block threshold", thr), rows("one-block threshold + 1", thr + 1),
+        cols("one-block threshold", thr_cols),
+        cols("one-block threshold + 1", thr_cols + 1),
+        rows("1 point a thread on 4 blocks", 4096, _blocks=4),
+        rows("2 points a thread on 4 blocks", 4097, _blocks=4),
+        rows("one block, 8 points a thread", 8192, _blocks=1),
+        cols("one block above 8192 points: global state", 8193, _blocks=1),
+    ]
 
 def _per_entry(name: str, got, want, scale, rtol: float, **info) -> float:
     """Require |got - want| <= rtol * scale entry by entry (scale 0: exact);
@@ -665,7 +738,7 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
 
     b = bound_ms(4 * n10 * n10 + 8 * n10, OPS_GREEDY_ROW * n10 * (n10 - 1))
     got = propagate_cuda.greedy_rows(I, 0)
-    blocks = propagate_cuda.last_grid()
+    blocks = propagate_cuda.last_launch()["blocks"]
     plain_ms, want = timed(lambda: propagate.greedy_rows_plain(I, 0))
     res["greedy_rows"] = dict(
         shape=f"{n10} points, row mode", blocks=blocks,
@@ -677,7 +750,8 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
     b = bound_ms(24 * n180 + 8 * n180, OPS_GREEDY_COLUMN * n180 * (n180 - 1))
     got = propagate_cuda.greedy_columns(pc180, 0, 1e-6)
     res["greedy_columns"] = dict(
-        shape=f"{n180} points, column mode", blocks=propagate_cuda.last_grid(),
+        shape=f"{n180} points, column mode",
+        blocks=propagate_cuda.last_launch()["blocks"],
         ms=cuda_ms(lambda: propagate_cuda.greedy_columns(pc180, 0, 1e-6), 2, 0),
         bound_ms=b[0], bound_by=b[1])
     emit({"phase": "timing", "partial": True, "results": res})
@@ -687,20 +761,72 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
     res["greedy_columns"]["max_abs_err"] = _equal(
         "greedy_columns", got, want, n=n180, main_path_shape=True)
 
-    # the one-block threshold: one block at 3072 points against a grid of
-    # blocks at 3073, the same work but for one step
+    # the column greedy's time a step against N on its own grid: us a step
+    # = a + b N, a fit only (the grid grows with N up to one block an SM)
+    sizes = [20000, 50000, 100000, n180]
+    per_step = []
+    for n in sizes:
+        p = pc180[:n].contiguous()
+        ms = cuda_ms(lambda: propagate_cuda.greedy_columns(p, 0, 1e-6), 2, 1)
+        per_step.append({"n": n, "ms": ms, "us_per_step": 1e3 * ms / (n - 1),
+                         **propagate_cuda.last_launch()})
+    b_fit, a_fit = np.polyfit([float(x["n"]) for x in per_step],
+                              [x["us_per_step"] for x in per_step], 1)
+    res["greedy_columns"]["fit_us_per_step"] = {"a_us": float(a_fit),
+                                                "b_us_per_point": float(b_fit)}
+    # the two costs apart: on the full grid, P = 1, 2, 4, 8 points a thread,
+    # us a step = a + b P (a: the exchange and the block's reductions, the
+    # design's floor a step on this grid; b: the sweep of a point a thread)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    full_grid = []
+    for per in (1, 2, 4, 8):
+        n = sms * 1024 * per
+        p = torch.as_tensor(Transform.trans(ellipsoid(n, SEED + per))[0], device=dev)
+        ms = cuda_ms(lambda: propagate_cuda.greedy_columns(p, 0, 1e-6, _blocks=sms),
+                     2 if per <= 2 else 1, 0)
+        launch = propagate_cuda.last_launch()
+        require(launch == {"blocks": sms, "per_thread": per},
+                f"greedy_columns: launch {launch} at {n} points on {sms} blocks")
+        full_grid.append({"n": n, "ms": ms, "us_per_step": 1e3 * ms / (n - 1), **launch})
+        del p
+    b_fit, a_fit = np.polyfit([float(x["per_thread"]) for x in full_grid],
+                              [x["us_per_step"] for x in full_grid], 1)
+    res["greedy_columns"]["full_grid_us_per_step"] = {
+        "blocks": sms, "a_us": float(a_fit), "b_us_per_point_a_thread": float(b_fit)}
+    res["greedy_columns"]["step_floor_ms"] = float(a_fit) * (n180 - 1) / 1e3
+    # the exchange against the block count: 20480 points, one point a
+    # thread or none
+    blocks_sweep = []
+    p = pc180[:20480].contiguous()
+    for g in (20, 40, 80, sms):
+        ms = cuda_ms(lambda: propagate_cuda.greedy_columns(p, 0, 1e-6, _blocks=g), 3, 1)
+        blocks_sweep.append({"n": 20480, "ms": ms, "us_per_step": 1e3 * ms / 20479,
+                             **propagate_cuda.last_launch()})
+    # the one-block threshold: one block against a grid of ceil(n / 1024)
+    # blocks, row mode (the matrix tier and graph_dipole's patches) and
+    # column mode
     threshold = []
-    for n in (3072, 3073):
-        I = fields.dipole_interaction_matrix(pc10[:n].contiguous())
-        ms = cuda_ms(lambda: propagate_cuda.greedy_rows(I, 0), 3, 1)
-        threshold.append({"n": n, "ms": ms, "blocks": propagate_cuda.last_grid()})
+    for n in (1024, 2048, 3072, 4096, 4608, 5120, 5632, 6144, 8192):
+        p = pc10[:n].contiguous()
+        I = fields.dipole_interaction_matrix(p)
+        for mode, fn in (("rows", lambda g: propagate_cuda.greedy_rows(I, 0, _blocks=g)),
+                         ("columns", lambda g: propagate_cuda.greedy_columns(
+                             p, 0, 1e-6, _blocks=g))):
+            for blocks in (1, -(-n // 1024) if n > 1024 else 2):
+                ms = cuda_ms(lambda: fn(blocks), 3, 1)
+                threshold.append({"mode": mode, "n": n, "ms": ms,
+                                  "us_per_step": 1e3 * ms / (n - 1),
+                                  **propagate_cuda.last_launch()})
+        del I
     # the two tiers at MATRIX_LIMIT: matrix + row greedy against columns
     tiers = {"n": n10,
              "matrix_tier_ms": res["dipole_imatrix"]["ms"] + res["greedy_rows"]["ms"],
              "column_tier_ms": cuda_ms(
                  lambda: propagate_cuda.greedy_columns(pc10, 0, 1e-6), 2, 1)}
-    emit({"phase": "timing", "results": res, "greedy_one_block_threshold": threshold,
-          "tiers_at_matrix_limit": tiers})
+    emit({"phase": "timing", "results": res, "greedy_columns_per_step": per_step,
+          "greedy_columns_full_grid": full_grid,
+          "greedy_columns_blocks_at_20480": blocks_sweep,
+          "greedy_one_block_threshold": threshold, "tiers_at_matrix_limit": tiers})
     return res
 
 
@@ -732,6 +858,7 @@ def _kernel_run(label, fn, path_kernels, launches, report=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, plain = _read_counts()
+    RUN_COUNTS[label] = counts
     emit({"phase": "main_path", "run": label, "seconds": wall, "stages": timer.stages,
           **(report(out) if report else {}),
           "launches": counts, "plain_cuda_calls": plain})
@@ -858,7 +985,8 @@ def phase_timing_patches(hand_out, hand180, lion, dev) -> dict:
         max_abs_err=_equal("knn", got, want, main_path_shape=True, shape=[B, nb, nb]),
         ms=cuda_ms(lambda: neighbors.knn_with_dist(pos1, pos1, k), 20, 1),
         plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-        library_ms=cuda_ms(lambda: torch.topk(d2, k, dim=-1, largest=False), 20, 1))
+        library_ms=cuda_ms(lambda: torch.topk(d2, k, dim=-1, largest=False), 20, 1),
+        forward_shapes=_knn_forward_shapes(pos1, valid, nb, pool, m1, lens, dev))
     del d2
     got = neighbors.fps_masked_batch(pos1, valid, m1, starts)
     plain_ms, want = timed(lambda: neighbors.fps_masked_batch_plain(pos1, valid, m1, starts))
@@ -873,6 +1001,43 @@ def phase_timing_patches(hand_out, hand180, lion, dev) -> dict:
     _profile_forward(batch, valid, pointcnn.key_starts(prng.prng_key(1), lens, pool, m1),
                      dev)
     return res
+
+
+def _knn_forward_shapes(pos1, valid, nb, pool, m1, lens, dev) -> list:
+    """kNN at each of the forward's five calls (PointCNN.forward_sels): the
+    k = 20 self searches on the rows of the three pooling stages and the
+    k = 16 interpolations between them, on the lion's first chunk; each
+    bit-equal to the plain search, its time, bound and launches per lion
+    call (the lion run's kNN launches over the five calls a forward)."""
+    from dipole_tpu_torch.models import pointcnn
+    from dipole_tpu_torch.ops import neighbors
+    from dipole_tpu_torch.utils import prng
+
+    B = len(pos1)
+    st = np.zeros((B, 2), np.int32)
+    st[:len(lens)] = pointcnn.key_starts(prng.prng_key(1), lens, pool, m1)
+    st = torch.as_tensor(st, device=dev)
+    m2 = pointcnn._pad_sizes(nb, pool)[1]
+    _, valid2, pos2, sel2 = pointcnn.PointCNN(pool).fps_selections(
+        pos1, valid, m1, m2, st[:, 0], st[:, 1])
+    valid3 = pointcnn._pool_valid(valid2, pool, m2)
+    pos3 = torch.where(valid3[..., None], pointcnn._gather(pos2, sel2),
+                       torch.full((1, 1, 1), pointcnn._SENTINEL, device=dev))
+    per_call = RUN_COUNTS["lion180k_orient_large"]["knn"] / 5
+    out = []
+    for what, dst, src, k in (("self", pos1, pos1, 20), ("self", pos2, pos2, 20),
+                              ("self", pos3, pos3, 20), ("interpolate", pos2, pos3, 16),
+                              ("interpolate", pos1, pos2, 16)):
+        nd, ns = dst.shape[1], src.shape[1]
+        err = _equal("knn", neighbors.knn_with_dist(dst, src, k),
+                     neighbors.knn_with_dist_plain(dst, src, k),
+                     main_path_shape=True, shape=[B, nd, ns], k=k)
+        b = bound_ms(12 * B * (nd + ns) + 8 * B * nd * k, OPS_KNN * B * nd * ns)
+        out.append(dict(call=f"{what} {nd} <- {ns}, k={k}", shape=[B, nd, ns],
+                        ms=cuda_ms(lambda: neighbors.knn_with_dist(dst, src, k), 20, 1),
+                        launches_per_lion_call=per_call, bound_ms=b[0],
+                        bound_by=b[1], max_abs_err=err))
+    return out
 
 
 def _profile_forward(batch, valid, starts, dev) -> None:
@@ -931,19 +1096,19 @@ def _replay_scale(I, orders, knn_idx, colw, w) -> torch.Tensor:
     return scale
 
 
-def check_replay(name_info: dict, I, orders, knn_idx, colw, cluster=None) -> float:
+def check_replay(name_info: dict, I, orders, knn_idx, colw) -> float:
     """The replay kernel against its plain version: identical decisions and
     flips, the recorded interactions within 1e-6 of sum |I w|."""
     from dipole_tpu_torch.ops import propagate, propagate_cuda
 
-    w_k, i_k = propagate_cuda.replay(I, orders, knn_idx, colw, cluster)
+    w_k, i_k = propagate_cuda.replay(I, orders, knn_idx, colw)
     w_p, i_p = propagate.replay_plain(I, orders, knn_idx, colw)
     torch.cuda.synchronize()
     flips_same = bool(torch.equal(i_k < 0, i_p < 0))
     rel = _rel_inter(i_k, i_p, _replay_scale(I, orders, knn_idx, colw, w_p))
     err = float((i_k - i_p).abs().max())
     emit({"phase": "check", "kernel": "replay", **name_info,
-          "blocks": propagate_cuda.last_grid(), "w_equal": bool(torch.equal(w_k, w_p)),
+          "blocks": propagate_cuda.last_launch()["blocks"], "w_equal": bool(torch.equal(w_k, w_p)),
           "flips_identical": flips_same, "max_abs_err": err,
           "max_err_over_sum_abs": rel})
     require(torch.equal(w_k, w_p) and flips_same,
@@ -1033,7 +1198,7 @@ def phase_checks_xie(gt10: np.ndarray, dev) -> dict:
                    torch.as_tensor(propagate._knn_idx(pcg, kk), device=dev))
             t0 = time.perf_counter()
             got = propagate_cuda.xie_greedy(IT, start, knn)
-            blocks = propagate_cuda.last_grid()
+            blocks = propagate_cuda.last_launch()["blocks"]
             want = propagate.xie_greedy_plain(IT, start, knn)
             torch.cuda.synchronize()
             errs["greedy_xie"] = max(errs["greedy_xie"], _equal(
@@ -1047,17 +1212,35 @@ def phase_checks_xie(gt10: np.ndarray, dev) -> dict:
     knn = torch.as_tensor(propagate._knn_idx(pc, 8), device=dev)
     mats = {"xie": fields.xie_interaction_matrix(pct),
             "dipole": fields.dipole_interaction_matrix(pct)}
+    # 1500 and 700 steps: the 128-step block divides neither
     for T in (1, 3, 9):
         orders = torch.as_tensor(np.stack([r.permutation(n) for _ in range(T)]),
                                  device=dev)
         for kernel, I in mats.items():
-            for masked, cluster in ((False, 8), (False, 16), (True, None)):
+            for masked, steps in ((False, 1500), (False, 700), (True, 1500)):
                 for weighted in (False, True):
                     errs["replay"] = max(errs["replay"], check_replay(
-                        dict(n=n, T=T, matrix=kernel, knn_mask=masked,
-                             points_weight=weighted, cluster=cluster),
-                        I, orders, knn if masked else None,
-                        colw if weighted else None, cluster))
+                        dict(n=n, T=T, steps=steps, matrix=kernel, knn_mask=masked,
+                             points_weight=weighted),
+                        I, orders[:, :steps].contiguous(), knn if masked else None,
+                        colw if weighted else None))
+    # orders that visit indices again (inside a block of steps and across
+    # blocks; a later visit overwrites), orders shorter than N, orders over
+    # seven indices
+    reps = r.integers(0, n, (3, 2000))
+    reps[:, 1200:1300] = reps[:, 40:140]
+    reps[:, 60:70] = reps[:, 50:60]
+    kinds = {"repeats": reps,
+             "short": np.stack([r.permutation(n)[:777] for _ in range(3)]),
+             "seven_indices": r.integers(0, 7, (3, 500))}
+    for kind, o in kinds.items():
+        orders = torch.as_tensor(o, device=dev)
+        for kernel, I in mats.items():
+            for masked in (False, True):
+                errs["replay"] = max(errs["replay"], check_replay(
+                    dict(n=n, T=3, steps=o.shape[1], orders=kind, matrix=kernel,
+                         knn_mask=masked, points_weight=True),
+                    I, orders, knn if masked else None, colw))
     return errs
 
 
@@ -1159,7 +1342,7 @@ def phase_timing_xie(gt10, gt30, dev) -> dict:
 
     IT = fields.xie_interaction_matrix(p10, transposed=True)
     got = propagate_cuda.xie_greedy(IT, 0)
-    blocks = propagate_cuda.last_grid()
+    blocks = propagate_cuda.last_launch()["blocks"]
     plain_ms, want = timed(lambda: propagate.xie_greedy_plain(IT, 0))
     b = bound_ms(4 * n10 * n10 + 12 * n10, OPS_GREEDY_XIE * n10 * (n10 - 1))
     res["greedy_xie"] = dict(
@@ -1173,36 +1356,55 @@ def phase_timing_xie(gt10, gt30, dev) -> dict:
     orders = torch.as_tensor(orders_np, device=dev)
     I = fields.xie_interaction_matrix(p30)
     T = orders.shape[0]
-    modes = {}
-    for cluster in (8, 16):
-        err = check_replay(dict(n=n30, T=T, matrix="xie", cluster=cluster,
-                                main_path_shape=True), I, orders, None, None, cluster)
-        modes[cluster] = dict(
-            blocks=propagate_cuda.last_grid(), max_abs_err=err,
-            ms=cuda_ms(lambda: propagate_cuda.replay(I, orders, cluster=cluster), 3, 0))
+    err = check_replay(dict(n=n30, T=T, matrix="xie", main_path_shape=True),
+                       I, orders, None, None)
     plain_ms, _ = timed(lambda: propagate.replay_plain(I, orders))
     # each input read once: I, the orders; each output written once: w, inter
     b = bound_ms(4 * n30 * n30 + 4 * T * n30 + 12 * T * n30,
                  OPS_REPLAY * T * n30 * n30)
-    # the main path's choice
-    main = dict(ms=cuda_ms(lambda: propagate_cuda.replay(I, orders), 3, 0),
-                blocks=propagate_cuda.last_grid())
+    ms = cuda_ms(lambda: propagate_cuda.replay(I, orders), 3, 0)
     res["replay"] = dict(
         shape=f"{T} orders x {n30} points",
-        blocks=main["blocks"], max_abs_err=max(m["max_abs_err"] for m in modes.values()),
-        ms=main["ms"], plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-        modes={f"cluster={c}": m for c, m in modes.items()},
-        bytes_read_by_this_design=4 * T * n30 * n30)
+        blocks=propagate_cuda.last_launch()["blocks"], max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+        bytes_read_by_this_design=4 * T * n30 * n30,
+        bytes_bound_ms=4 * T * n30 * n30 / PEAK_BYTES_PER_S * 1e3,
+        profile=_profile_replay(I, orders))
     del I
-    # graph_dipole's vote count: 9 orders of a 10k cloud, in each mode
+    # graph_dipole's vote count: 9 orders of a 10k cloud
     orders9 = torch.as_tensor(propagate.bfs_orders(pc10, 0, times=9)[0], device=dev)
     I = fields.xie_interaction_matrix(p10)
-    res["replay"]["modes_9_orders_10k"] = {
-        f"cluster={c}": cuda_ms(lambda: propagate_cuda.replay(I, orders9, cluster=c), 3, 1)
-        for c in (8, 16, None)}
+    res["replay"]["ms_9_orders_10k"] = cuda_ms(
+        lambda: propagate_cuda.replay(I, orders9), 3, 1)
     del I
     emit({"phase": "timing", "xie_kernels": res})
     return res
+
+
+def _profile_replay(I, orders) -> dict:
+    """One unmasked replay under torch.profiler: launches and device time of
+    its bulk and decision kernels, and the share of the call's wall that the
+    device sat idle (the gaps between the launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dipole_tpu_torch.ops import propagate_cuda
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        propagate_cuda.replay(I, orders)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    kernels = {("bulk" if "bulk" in e.key else "decisions"): dict(
+        launches=e.count, ms=e.self_device_time_total / 1e3,
+        us_each=e.self_device_time_total / max(e.count, 1))
+        for e in events if "replay_" in e.key}
+    return {"profiled_wall_ms": wall_ms, "kernels": kernels,
+            "device_idle_share": 1 - busy_ms / wall_ms}
 
 
 def _mxu_fns(name):
@@ -1401,7 +1603,9 @@ def main(argv) -> int:
                         "bound_by": t["bound_by"],
                         "library_ms": t.get("library_ms"),
                         "library_call": LIBRARY_CALLS.get(name),
-                        "shape": t["shape"]})
+                        "shape": t["shape"],
+                        **{k: t[k] for k in ("fit_us_per_step", "full_grid_us_per_step",
+                                             "step_floor_ms") if k in t}})
     emit({"kernels": kernels})
     print(info["nvidia_smi"].splitlines()[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -52,7 +52,7 @@ __all__ = ["greedy_sign_sequence", "strongest_field_propagation_points",
            "MATRIX_LIMIT", "MAX_POINTS", "PLAIN_CUDA_CALLS"]
 
 MATRIX_LIMIT = 10000
-MAX_POINTS = 2**24
+MAX_POINTS = propagate_cuda.MAX_POINTS   # the greedy kernel's index field
 
 PLAIN_CUDA_CALLS = {"greedy_rows": 0, "greedy_columns": 0, "greedy_xie": 0,
                     "replay": 0}

@@ -11,15 +11,21 @@ cooperative CUDA kernel, in three update modes:
                   form;
 
 and of `csrc/replay.cu`, the in-order replay (replaces the XLA scan
-propagate.py:_in_order_scan): T orders in lock-step over one matrix.
+propagate.py:_in_order_scan): T orders in lock-step over one matrix, blocked
+over 128 steps (a bulk pass over all the SMs, then 128 decisions per order
+in one warp).
 
 The wrappers take CUDA tensors only (the plain versions and the CPU dispatch
-live in ops/propagate.py), allocate outputs and scratch with torch.empty,
-launch on the current stream, raise on a CUDA error and count launches in
-LAUNCHES. Greedy kernels and plain versions agree bit for bit in acc and
-sign (the kernel is built with -fmad=false; see the note in csrc/greedy.cu);
-the replay and its plain version take the same decisions (float64 sums in
-two orders; see csrc/replay.cu).
+live in ops/propagate.py), allocate outputs and scratch with torch.empty
+(the greedy's exchange words with torch.zeros, for every launch), launch on the
+current stream, raise on a CUDA error and count launches in LAUNCHES.
+Greedy kernels and plain versions agree bit for bit in acc and sign (the
+kernel is built with -fmad=false; see the note in csrc/greedy.cu); the
+replay and its plain version take the same decisions (float64 sums in two
+orders; see csrc/replay.cu).
+
+The greedy wrappers' arguments that start with an underscore choose the
+launch for tests and measurements (chip_smoke.py); no user path passes them.
 """
 from __future__ import annotations
 
@@ -31,63 +37,81 @@ from dipole_tpu_torch.ops import _build
 from dipole_tpu_torch.ops.fields_cuda import check_tensor
 
 __all__ = ["greedy_rows", "greedy_columns", "xie_greedy", "replay",
-           "reverse_knn", "LAUNCHES", "last_grid"]
+           "reverse_knn", "LAUNCHES", "last_launch",
+           "one_block_max_n"]
 
 LAUNCHES = {"greedy_rows": 0, "greedy_columns": 0, "greedy_xie": 0, "replay": 0}
 _PART_CAPACITY = 1024   # candidate slots per parity; the grid never exceeds it
-_max_clusters: dict = {}   # (device, cluster size) -> replay clusters at once
+MAX_POINTS = 2**24      # the greedy key's index field (csrc/greedy.cu)
 _P_, _N_ = ctypes.c_void_p, ctypes.c_int
-_grid = {"blocks": 0}
+_last = {"blocks": 0}
 
 
-def last_grid() -> int:
-    """Grid size (blocks) of the latest greedy or replay launch."""
-    return _grid["blocks"]
+def last_launch() -> dict:
+    """The latest greedy or replay launch: blocks (for the replay, the
+    orders: one block each decides), and for the row and column greedy the
+    points a thread holds in registers (0: its state in global memory)."""
+    return dict(_last)
 
 
-def _launch(data: torch.Tensor, n: int, start: int, eps: float, rows: bool):
+def one_block_max_n(rows: bool) -> int:
+    """The most points the row (rows=True) or the column greedy runs on one
+    block."""
+    _, fn = _build.entry("greedy", "dipole_greedy_one_block_max_n", [_N_])
+    return fn(int(rows))
+
+
+def _check_points(n: int) -> None:
+    if n > MAX_POINTS:
+        raise ValueError(f"{n} points: the greedy kernel takes at most 2^24")
+
+
+def _launch(data: torch.Tensor, n: int, start: int, eps: float, rows: bool,
+            reg_cap: int, blocks: int):
     if not 0 <= start < n:
         raise ValueError(f"starting point {start} outside [0, {n})")
-    lib = _build.library("greedy")
-    fn = lib.dipole_greedy
-    fn.restype = ctypes.c_int
-    P, N = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, N, N, ctypes.c_float, N, P, P, P, P, P, N,
-                   ctypes.POINTER(ctypes.c_int), P]
+    lib, fn = _build.entry("greedy", "dipole_greedy",
+                           [_P_, _N_, _N_, ctypes.c_float, _N_, _P_, _P_, _P_,
+                            _N_, _N_, _N_, ctypes.POINTER(ctypes.c_int), _P_])
     dev = data.device
     acc = torch.empty(n, dtype=torch.float32, device=dev)
     sign = torch.empty(n, dtype=torch.float32, device=dev)
-    part_v = torch.empty(2 * _PART_CAPACITY, dtype=torch.float32, device=dev)
-    part_i = torch.empty(2 * _PART_CAPACITY, dtype=torch.int32, device=dev)
-    part_a = torch.empty(2 * _PART_CAPACITY, dtype=torch.float32, device=dev)
-    blocks = ctypes.c_int(0)
+    # one 8-byte candidate a block and step parity, zero on entry
+    slots = torch.zeros(2 * _PART_CAPACITY, dtype=torch.int64, device=dev)
+    info = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(data.data_ptr(), n, int(start), float(eps), int(rows),
-                 acc.data_ptr(), sign.data_ptr(), part_v.data_ptr(),
-                 part_i.data_ptr(), part_a.data_ptr(), _PART_CAPACITY,
-                 ctypes.byref(blocks), stream)
+                 acc.data_ptr(), sign.data_ptr(), slots.data_ptr(), _PART_CAPACITY,
+                 int(reg_cap), int(blocks), info, stream)
     _build.check(lib, err, "dipole_greedy")
     LAUNCHES["greedy_rows" if rows else "greedy_columns"] += 1
-    _grid["blocks"] = blocks.value
+    _last.clear()
+    _last.update(blocks=info[0], per_thread=info[1])
     return acc, sign
 
 
-def greedy_rows(I: torch.Tensor, start: int):
+def greedy_rows(I: torch.Tensor, start: int, *, _reg_cap: int = 0, _blocks: int = 0):
     """(acc, sign) of the greedy over a precomputed (N, N) interaction
-    matrix, reading row c at each step."""
+    matrix (N <= 2^24), reading row c at each step. _reg_cap (state in
+    global memory above this many points; 0: only above what the SMs hold)
+    and _blocks (0: the kernel's choice) are for tests and measurements."""
+    _check_points(I.shape[0])
     check_tensor(I, "I")
     if I.shape[0] != I.shape[1]:
         raise ValueError(f"I: expected a square matrix, got {tuple(I.shape)}")
-    return _launch(I, I.shape[0], start, 0.0, True)
+    return _launch(I, I.shape[0], start, 0.0, True, _reg_cap, _blocks)
 
 
-def greedy_columns(pts: torch.Tensor, start: int, eps: float):
-    """(acc, sign) of the greedy over an (N, 6) cloud, computing each
-    step's interaction column on the fly."""
+def greedy_columns(pts: torch.Tensor, start: int, eps: float, *, _reg_cap: int = 0,
+                   _blocks: int = 0):
+    """(acc, sign) of the greedy over an (N, 6) cloud (N <= 2^24), computing
+    each step's interaction column on the fly; the private arguments as
+    greedy_rows'."""
+    _check_points(pts.shape[0])
     check_tensor(pts, "pts", 6)
     planes = pts.t().contiguous()      # (6, N) channel-major for coalescing
-    return _launch(planes, pts.shape[0], start, eps, False)
+    return _launch(planes, pts.shape[0], start, eps, False, _reg_cap, _blocks)
 
 
 def _check_knn(knn_idx: torch.Tensor | None, n: int, device) -> None:
@@ -133,7 +157,8 @@ def xie_greedy(IT: torch.Tensor, start: int, knn_idx: torch.Tensor | None = None
                  _PART_CAPACITY, ctypes.byref(blocks), stream)
     _build.check(lib, err, "dipole_xie_greedy")
     LAUNCHES["greedy_xie"] += 1
-    _grid["blocks"] = blocks.value
+    _last.clear()
+    _last.update(blocks=blocks.value)
     return acc, sign
 
 
@@ -152,28 +177,14 @@ def reverse_knn(knn_idx: torch.Tensor, n: int):
     return rev_ptr, (keys % n).to(torch.int32).contiguous()
 
 
-def _clusters_at_once(lib, dev, size: int) -> int:
-    """How many clusters of `size` blocks of the replay the card runs at
-    once (cached per device)."""
-    key = (dev.index if dev.index is not None else torch.cuda.current_device(), size)
-    if key not in _max_clusters:
-        count = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            _build.check(lib, lib.dipole_replay_max_clusters(size, ctypes.byref(count)),
-                         "dipole_replay_max_clusters")
-        _max_clusters[key] = count.value
-    return _max_clusters[key]
-
-
 def replay(I: torch.Tensor, orders: torch.Tensor,
            knn_idx: torch.Tensor | None = None,
-           colw: torch.Tensor | None = None, cluster: int | None = None):
+           colw: torch.Tensor | None = None):
     """(w (T, N) float32, inter (T, N) float64) of the in-order replay of
     orders (T, S) over the (N, N) matrix I (rows read); knn_idx (N, k): the
-    kNN mask in index form; colw (N,): per-source column weights. Unmasked,
-    each order runs on a cluster of `cluster` blocks: by default 16 while
-    the card runs all T such clusters at once, else 8 (the faster choice on
-    the H100; PERF.md)."""
+    kNN mask in index form; colw (N,): per-source column weights. An index
+    may repeat in an order (a later visit overwrites). Unmasked, the replay
+    runs in blocks of 128 steps; masked, one warp per order."""
     check_tensor(I, "I")
     n = I.shape[0]
     if I.shape[1] != n:
@@ -191,15 +202,17 @@ def replay(I: torch.Tensor, orders: torch.Tensor,
         if colw.shape[0] != n or colw.device != dev:
             raise ValueError("colw: expected (N,) on the matrix's device")
     lib, fn = _build.entry("replay", "dipole_replay",
-                           [_P_, _N_, _P_, _N_, _N_, _P_, _P_, _P_, _N_, _P_, _P_, _P_])
-    rev_ptr = rev_src = None
+                           [_P_, _N_, _P_, _N_, _N_, _P_, _P_, _P_, _P_, _P_,
+                            _P_, _P_, _P_])
+    rev_ptr = rev_src = part = tri = None
     if knn_idx is not None:
         rev_ptr, rev_src = reverse_knn(knn_idx, n)
-        cluster = 0                       # one warp per order
-    elif cluster is None:
-        cluster = 16 if T <= _clusters_at_once(lib, dev, 16) else 8
-    elif cluster not in (8, 16):
-        raise ValueError(f"cluster: 8 or 16 blocks, got {cluster}")
+    else:
+        _, scratch = _build.entry("replay", "dipole_replay_scratch", [_N_, _P_, _P_])
+        sizes = (ctypes.c_longlong(), ctypes.c_longlong())
+        scratch(T, ctypes.byref(sizes[0]), ctypes.byref(sizes[1]))
+        part = torch.empty(sizes[0].value, dtype=torch.float64, device=dev)
+        tri = torch.empty(sizes[1].value, dtype=torch.float32, device=dev)
     o = orders.to(torch.int32).contiguous()
     w = torch.zeros((T, n), dtype=torch.float32, device=dev)
     inter = torch.zeros((T, n), dtype=torch.float64, device=dev)
@@ -208,9 +221,12 @@ def replay(I: torch.Tensor, orders: torch.Tensor,
         err = fn(I.data_ptr(), n, o.data_ptr(), T, steps,
                  0 if colw is None else colw.data_ptr(),
                  0 if rev_ptr is None else rev_ptr.data_ptr(),
-                 0 if rev_src is None else rev_src.data_ptr(), cluster,
+                 0 if rev_src is None else rev_src.data_ptr(),
+                 0 if part is None else part.data_ptr(),
+                 0 if tri is None else tri.data_ptr(),
                  w.data_ptr(), inter.data_ptr(), stream)
     _build.check(lib, err, "dipole_replay")
     LAUNCHES["replay"] += 1
-    _grid["blocks"] = T * max(cluster, 1)
+    _last.clear()
+    _last.update(blocks=T)
     return w, inter

@@ -69,7 +69,7 @@ def test_imatrix_kernel_is_bit_equal(cuda_device):
 
 @pytest.mark.parametrize("mode", ["rows", "columns"])
 def test_greedy_kernel_is_bit_equal(cuda_device, mode):
-    pts = torch.as_tensor(sphere(4000, 4), device=cuda_device)
+    pts = torch.as_tensor(sphere(7000, 4), device=cuda_device)
     if mode == "rows":
         I = fields.dipole_interaction_matrix(pts)
         got = propagate_cuda.greedy_rows(I, 5)
@@ -77,22 +77,72 @@ def test_greedy_kernel_is_bit_equal(cuda_device, mode):
     else:
         got = propagate_cuda.greedy_columns(pts, 5, 1e-6)
         want = propagate.greedy_columns_plain(pts, 5, 1e-6)
-    assert propagate_cuda.last_grid() > 1       # the grid.sync() path
+    assert propagate_cuda.last_launch()["blocks"] > 1   # the exchange between blocks
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 
-# one block (__syncthreads) up to 3072 points, a grid of blocks above
-@pytest.mark.parametrize("n", [2, 33, 1025, 3072, 3073])
+def _greedy_both_modes(pts, start, **kw):
+    """[(kernel, plain, launch)] of the row and the column greedy."""
+    I = fields.dipole_interaction_matrix(pts)
+    out = []
+    for kernel, plain in (
+            (lambda: propagate_cuda.greedy_rows(I, start, **kw),
+             lambda: propagate.greedy_rows_plain(I, start)),
+            (lambda: propagate_cuda.greedy_columns(pts, start, 1e-6, **kw),
+             lambda: propagate.greedy_columns_plain(pts, start, 1e-6))):
+        got = kernel()
+        out.append((got, plain(), propagate_cuda.last_launch()))
+    return out
+
+
+# (n, _reg_cap, _blocks, points a thread): both sides of the register cap
+# (through the private cap; 0 = state in global memory), one block up to
+# its 8192 points and a forced one-block grid above them, a grid just above
+# the one-block threshold, and 8 points a thread on two blocks
+@pytest.mark.parametrize("n,reg_cap,blocks,per", [
+    (4000, 4000, 0, 4), (4001, 4000, 0, 0), (20000, 5000, 0, 0),
+    (8192, 0, 1, 8), (8193, 0, 1, 0), (2048, 0, 1, 2),
+    (5121, 0, 0, 1), (12000, 0, 2, 8)])
+def test_greedy_kernel_launch_shapes_are_bit_equal(cuda_device, n, reg_cap, blocks, per):
+    pts = torch.as_tensor(sphere(n, 23), device=cuda_device)
+    for got, want, launch in _greedy_both_modes(pts, 11, _reg_cap=reg_cap,
+                                                _blocks=blocks):
+        assert launch["per_thread"] == per
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [3000, 20000])
+def test_greedy_kernel_ties_across_blocks(cuda_device, n):
+    """Point i + n/2 duplicates point i, in another block: their |acc| tie
+    exactly until the lower index is picked."""
+    pc = sphere(n, 24)
+    pc[n // 2:] = pc[:n // 2]
+    pts = torch.as_tensor(pc, device=cuda_device)
+    for reg_cap in (0, 1):                       # registers; global memory
+        for got, want, launch in _greedy_both_modes(pts, 3, _reg_cap=reg_cap,
+                                                    _blocks=4):
+            assert launch["blocks"] == 4
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            assert torch.equal(got[0][:n // 2], got[0][n // 2:])
+
+
+# one block (no exchange) up to 5120 points in row mode and 4096 in column
+# mode, a grid of blocks above
+@pytest.mark.parametrize("n", [2, 33, 1025, 4096, 4097, 5120, 5121])
 def test_greedy_kernel_ragged_sizes_last_start(cuda_device, n):
     pts = torch.as_tensor(sphere(n, 9), device=cuda_device)
     I = fields.dipole_interaction_matrix(pts)
-    for got, want in [
-        (propagate_cuda.greedy_rows(I, n - 1), propagate.greedy_rows_plain(I, n - 1)),
-        (propagate_cuda.greedy_columns(pts, n - 1, 1e-6),
-         propagate.greedy_columns_plain(pts, n - 1, 1e-6)),
-    ]:
+    for rows, kernel, plain in [
+            (True, lambda: propagate_cuda.greedy_rows(I, n - 1),
+             lambda: propagate.greedy_rows_plain(I, n - 1)),
+            (False, lambda: propagate_cuda.greedy_columns(pts, n - 1, 1e-6),
+             lambda: propagate.greedy_columns_plain(pts, n - 1, 1e-6))]:
+        got = kernel()
+        one_block = propagate_cuda.last_launch()["blocks"] == 1
+        want = plain()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert one_block == (n <= propagate_cuda.one_block_max_n(rows))
 
 
 def test_wrappers_check_their_inputs(cuda_device):
@@ -105,6 +155,13 @@ def test_wrappers_check_their_inputs(cuda_device):
         propagate_cuda.greedy_columns(pts[:, :3].contiguous(), 0, 1e-6)
     with pytest.raises(ValueError, match="starting point"):
         propagate_cuda.greedy_rows(fields.dipole_interaction_matrix(pts), 64)
+    # the key's index field holds 2^24 points: the wrapper and the C entry
+    # point refuse more
+    big = torch.zeros((2**24 + 1, 6), device=cuda_device)
+    with pytest.raises(ValueError, match="2\\^24"):
+        propagate_cuda.greedy_columns(big, 0, 1e-6)
+    with pytest.raises(RuntimeError, match="dipole_greedy: CUDA error"):
+        propagate_cuda._launch(big.t().contiguous(), 2**24 + 1, 0, 1e-6, False, 0, 0)
 
 
 def test_main_path_takes_kernels_only(cuda_device):
@@ -285,7 +342,7 @@ def test_xie_greedy_kernel_is_bit_equal(cuda_device, n, k):
     want = propagate.xie_greedy_plain(IT, n - 1, knn)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if n > 3072:
-        assert propagate_cuda.last_grid() > 1
+        assert propagate_cuda.last_launch()["blocks"] > 1
 
 
 @pytest.mark.parametrize("T,masked,weighted", [(1, False, False), (3, True, False),
@@ -297,19 +354,49 @@ def test_replay_kernel_takes_the_plain_decisions(cuda_device, T, masked, weighte
     pc = sphere(n, 18)
     r = np.random.default_rng(T)
     I = fields.xie_interaction_matrix(torch.as_tensor(pc, device=cuda_device))
-    orders = torch.as_tensor(np.stack([r.permutation(n) for _ in range(T)]),
-                             device=cuda_device)
     knn = torch.as_tensor(_knn_idx(pc, 8), device=cuda_device) if masked else None
     colw = (torch.as_tensor(r.uniform(0.2, 1.0, n).astype(np.float32),
                             device=cuda_device) if weighted else None)
-    w_p, i_p = propagate.replay_plain(I, orders, knn, colw)
-    # 8- and 16-block clusters and the automatic choice (the masked replay
-    # has one mode)
-    for cluster in ((None,) if masked else (8, 16, None)):
-        w_k, i_k = propagate_cuda.replay(I, orders, knn, colw, cluster)
+    # one block of 128 steps, and 700 and 1500 steps (no multiple of it;
+    # 1500 visits every index again)
+    for steps in (128, 700, 1500):
+        orders = torch.as_tensor(np.stack([np.concatenate(
+            [r.permutation(n), r.permutation(n), r.permutation(n)])[:steps]
+            for _ in range(T)]), device=cuda_device)
+        w_p, i_p = propagate.replay_plain(I, orders, knn, colw)
+        w_k, i_k = propagate_cuda.replay(I, orders, knn, colw)
         assert torch.equal(w_k, w_p) and torch.equal(i_k < 0, i_p < 0)
         # float64 sums in two orders: 1e-6 of the largest recorded |inter|
         assert float((i_k - i_p).abs().max()) <= 1e-6 * float(i_p.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["repeats", "short", "few"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_replay_kernel_repeats_and_short_orders(cuda_device, kind, masked):
+    """Orders that visit an index again (inside one block of steps and
+    across blocks: the later visit overwrites), orders shorter than N, and
+    orders over a handful of indices (many repeats in every block)."""
+    from dipole_tpu_torch.ops.propagate import _knn_idx
+
+    n = 600
+    pc = sphere(n, 25)
+    r = np.random.default_rng(26)
+    I = fields.dipole_interaction_matrix(torch.as_tensor(pc, device=cuda_device))
+    if kind == "repeats":
+        orders = r.integers(0, n, (3, 900))
+        orders[:, 500:540] = orders[:, 10:50]
+        orders[:, 60:70] = orders[:, 50:60]
+    elif kind == "short":
+        orders = np.stack([r.permutation(n)[:211] for _ in range(3)])
+    else:
+        orders = r.integers(0, 7, (3, 300))
+    orders = torch.as_tensor(orders, device=cuda_device)
+    knn = torch.as_tensor(_knn_idx(pc, 8), device=cuda_device) if masked else None
+    colw = torch.as_tensor(r.uniform(0.2, 1.0, n).astype(np.float32), device=cuda_device)
+    w_p, i_p = propagate.replay_plain(I, orders, knn, colw)
+    w_k, i_k = propagate_cuda.replay(I, orders, knn, colw)
+    assert torch.equal(w_k, w_p) and torch.equal(i_k < 0, i_p < 0)
+    assert float((i_k - i_p).abs().max()) <= 1e-6 * float(i_p.abs().max())
 
 
 def test_xie_wrappers_check_their_inputs(cuda_device):

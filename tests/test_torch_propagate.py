@@ -44,6 +44,33 @@ def test_greedy_noisy_cloud_with_duplicates_matches_jax():
         np.testing.assert_allclose(acc_t, acc_j, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("matrix_limit", [None, 0], ids=["matrix", "columns"])
+def test_greedy_ties_far_apart_in_index_match_jax(matrix_limit):
+    """Point i + 150 duplicates point i: their columns agree and each adds 0
+    to the other, so their |acc| tie exactly until the lower index is
+    picked (on the card such pairs lie in different blocks)."""
+    pc, _ = scramble_signs(make_sphere(300, seed=30, noise=0.01), seed=31)
+    pc[150:] = pc[:150]
+    acc_j, sign_j = _jax_greedy(pc, 4, matrix_limit)
+    acc_t, sign_t = _port_greedy(pc, 4, matrix_limit)
+    assert (sign_t == sign_j).all()
+    np.testing.assert_allclose(acc_t, acc_j, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(acc_t[:150], acc_t[150:])   # tied all along
+
+
+@pytest.mark.parametrize("mode", ["rows", "columns"])
+def test_greedy_wrappers_refuse_more_than_2_24_points(mode):
+    """The kernel's candidate key holds an index below 2^24 + 1: the
+    wrappers refuse a larger cloud before they look at its device (meta
+    tensors, so nothing is allocated)."""
+    n = propagate_cuda.MAX_POINTS + 1
+    with pytest.raises(ValueError, match="at most 2\\^24"):
+        if mode == "rows":
+            propagate_cuda.greedy_rows(torch.empty((n, n), device="meta"), 0)
+        else:
+            propagate_cuda.greedy_columns(torch.empty((n, 6), device="meta"), 0, 1e-6)
+
+
 @pytest.mark.parametrize("diffuse", [False, True])
 @pytest.mark.parametrize("n", [500, 1200])
 def test_strongest_field_propagation_points_matches_jax(diffuse, n):

@@ -122,6 +122,33 @@ def test_in_order_replay_matches_jax(kernel, masked, weighted, diffuse):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("kernel", ["xie", "dipole"])
+@pytest.mark.parametrize("kind", ["repeats", "short"])
+@pytest.mark.parametrize("diffuse", [False, True])
+def test_in_order_replay_repeats_and_short_orders_match_jax(kernel, kind, diffuse):
+    """Orders that visit an index again (the later visit overwrites w and
+    the recorded interaction) and orders shorter than N (the rest stays
+    unvisited), weighted, against the JAX scan."""
+    n = 300
+    rng = np.random.default_rng(64)
+    pc = _cloud(n, 65)
+    if kind == "repeats":
+        orders = rng.integers(0, n, (3, n))
+        orders[:, 200:230] = orders[:, 10:40]            # repeats at a distance
+        assert all(len(np.unique(o)) < n for o in orders)
+    else:
+        orders = np.stack([rng.permutation(n)[:n // 3] for _ in range(3)])
+    w = rng.uniform(0.2, 1.0, n).astype(np.float32)
+    kw = dict(eps=1e-2, diffuse=diffuse, kernel=kernel, points_weight=w)
+    want = jprop.xie_propagation_in_order(pc, orders, **kw)
+    got = propagate.xie_propagation_in_order(pc, orders, device="cpu", **kw)
+    np.testing.assert_array_equal(got, want)
+    if kind == "short" and not diffuse:
+        visited = np.zeros((3, n), bool)
+        visited[np.arange(3)[:, None], orders] = True
+        assert not got[~visited].any()                   # unvisited: no flip
+
+
 def test_replay_plain_records_float64_row_sums():
     """inter of the plain replay is the float64 sum of the float32 products
     I colw w at each visit, and w the sign of it."""
