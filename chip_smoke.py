@@ -26,14 +26,21 @@ Phases, one JSON line each:
                 sources; per component rtol 1e-4 + 1e-5 max|E|), group
                 (weights, duplicate points, an empty group, ids outside the
                 range; |dF| <= 1e-4 sum|I| per entry), knn (sentinel rows,
-                duplicates, cross shapes, k above the source count) and fps
+                duplicates, cross shapes, k above the source count, 8192
+                sources; and at the forward's five shapes exact distance
+                ties, lattice points and a duplicated half, for k = 1, 16,
+                20 and 32, with 1, 2 and 4 lanes a query) and fps
                 (ragged valid counts, sentinel rows, duplicates, fewer valid
                 points than picks), knn and fps bit-equal; the xie slice's
                 kernels: the xie matrix in both layouts (I and I^T) at 4096
                 points (coincident pairs: n.n; a pair 1e-20 apart whose
                 entry overflows: 0), 3001, C = 2.5 and targets != sources,
-                bit-equal; the xie greedy at 2000 and 10000 points, with and
-                without a k = 8 kNN mask, acc and sign bit-equal; the replay
+                bit-equal; the xie greedy at 2000, 10000 and 30000 points, a
+                cloud whose second half duplicates its first (exact ties,
+                on one block and across 6), both sides of its one-block
+                limit, one block of 8 points a thread and a matrix with most
+                entries 0 (and some -0), each with and without a k = 8 kNN
+                mask, acc and sign bit-equal; the replay
                 for 1, 3 and 9 orders, xie and dipole matrices, kNN mask and
                 points_weight on and off, 1500 and 700 steps (no multiple
                 of the 128-step block), and orders that repeat indices,
@@ -95,16 +102,21 @@ Phases, one JSON line each:
                 The patch kernels at the main path's largest calls: field
                 10000 sources x 180000 targets (transfer), group over the
                 lion's representatives, knn and fps on the lion's first
-                forward chunk, and knn at each of the forward's five calls
+                forward chunk, knn at each of the forward's five calls
                 (self k = 20 at 512, 308 and 185 rows; the k = 16
                 interpolations 308 <- 185 and 512 <- 308) with its launches
-                per lion call; field and group held to their plain versions,
-                knn and fps bit-equal; kNN's library yardstick is one
-                torch.topk over the precomputed distances. One PointCNN
+                per lion call, its plain version's and torch.topk's time,
+                the profiler's kernel time and the time with 1, 2 and 4
+                lanes a query, and the forward's second FPS
+                (m1 -> m2 rows); field and group held to their plain
+                versions, knn and fps bit-equal; kNN's library yardstick is
+                one torch.topk over the precomputed distances. One PointCNN
                 forward over that chunk is timed and traced (torch.profiler:
                 device busy share, the kernels that take the most time).
                 The xie slice's kernels at its shapes: the xie matrix at
-                30000 (I) and 10000 (I^T), the xie greedy at 10000, the
+                30000 (I) and 10000 (I^T), the xie greedy at 10000, masked
+                (k = 8) at 10000 and at 30000, and one block against a grid
+                from 2048 to 8192 points, the
                 replay of the tree_xie run's 3 BFS orders at 30000 and of 9
                 orders (graph_dipole's vote count) at 10000, and one replay
                 traced (torch.profiler: its bulk and decision kernels'
@@ -490,8 +502,8 @@ def _greedy_launch_cases(cloud10: np.ndarray, dev) -> list:
                 lambda: propagate.greedy_columns_plain(pts, start, 1e-6),
                 {"case": label, "ties": ties, **kw})
 
-    thr = propagate_cuda.one_block_max_n(True)
-    thr_cols = propagate_cuda.one_block_max_n(False)
+    thr = propagate_cuda.one_block_max_n("rows")
+    thr_cols = propagate_cuda.one_block_max_n("columns")
     return [
         cols("ties across 6 blocks", 6000, ties=True, _blocks=6),
         cols("ties, state in global memory", 6000, ties=True, _blocks=6, _reg_cap=1),
@@ -562,6 +574,35 @@ def _knn_case(r, dev, b, nd, ns, k, nsent, self_knn):
     return torch.as_tensor(dst, device=dev), torch.as_tensor(src, device=dev)
 
 
+# the PointCNN forward's five kNN calls (nd <- ns): the k = 20 self
+# searches at 512, 308 and 185 rows and the k = 16 interpolations
+KNN_FORWARD = ((512, 512), (308, 308), (185, 185), (308, 185), (512, 308))
+
+
+def _knn_tie_cases(r, dev, b=4):
+    """(label, dst, src) at each forward shape with exact distance ties:
+    points of an 8^3 integer lattice (d2 exact small integers, many equal),
+    and random points whose second half duplicates the first; the queries
+    are the sources for a self search, else a shuffle of lattice points or
+    of the duplicated cloud with more rows."""
+    lat = np.stack(np.meshgrid(*[np.arange(8.0)] * 3, indexing="ij"), -1)
+    lat = lat.reshape(-1, 3).astype(np.float32)
+    out = []
+    for nd, ns in KNN_FORWARD:
+        src = np.stack([lat[r.permutation(512)[:ns]] for _ in range(b)])
+        dst = src if nd == ns else np.stack([lat[r.permutation(512)[:nd]]
+                                             for _ in range(b)])
+        out.append((f"lattice {nd} <- {ns}", dst, src))
+        src = r.normal(size=(b, ns, 3)).astype(np.float32)
+        src[:, ns - ns // 2:] = src[:, :ns // 2]
+        dst = src if nd == ns else np.concatenate(
+            [src, src[:, r.integers(0, ns, nd - ns)]], axis=1)
+        out.append((f"duplicated half {nd} <- {ns}", dst, src))
+    return [(label, torch.as_tensor(np.ascontiguousarray(d), device=dev),
+             torch.as_tensor(np.ascontiguousarray(s), device=dev))
+            for label, d, s in out]
+
+
 def _fps_case(r, dev, b, n, m):
     pos = r.normal(size=(b, n, 3)).astype(np.float32)
     nv = r.integers(max(1, m // 4), n + 1, b)
@@ -610,18 +651,27 @@ def phase_checks_patch(dev) -> dict:
     errs["dipole_group"] = _per_entry("dipole_group", k, p, _group_scale(wpts, gid, 50),
                                       1e-4, points=4000, groups=50)
 
-    # knn: self with sentinel rows, cross, nearly all sentinel, k > ns
+    # knn: self with sentinel rows, cross, nearly all sentinel, k > ns, the
+    # most sources; then exact ties at the forward's five shapes
     errs["knn"] = 0.0
     for b, nd, ns, k_, nsent, self_knn in [(5, 512, 512, 20, 40, True),
                                            (3, 308, 185, 16, 0, False),
                                            (2, 130, 200, 20, 190, False),
                                            (2, 64, 10, 16, 0, False),
-                                           (4, 1024, 1024, 20, 100, True)]:
+                                           (2, 33, 20, 32, 0, False),
+                                           (4, 1024, 1024, 20, 100, True),
+                                           (2, 300, 8192, 20, 0, False)]:
         dst, srcs = _knn_case(r, dev, b, nd, ns, k_, nsent, self_knn)
         errs["knn"] = max(errs["knn"], _equal(
             "knn", neighbors.knn_with_dist(dst, srcs, k_),
             neighbors.knn_with_dist_plain(dst, srcs, k_),
             shape=[b, nd, ns], k=k_, sentinel_rows=nsent))
+    for label, dst, srcs in _knn_tie_cases(r, dev):
+        for k_ in (1, 16, 20, 32):
+            errs["knn"] = max(errs["knn"], _equal(
+                "knn", neighbors.knn_with_dist(dst, srcs, k_),
+                neighbors.knn_with_dist_plain(dst, srcs, k_), case=label,
+                shape=[dst.shape[0], dst.shape[1], srcs.shape[1]], k=k_))
     errs["fps"] = 0.0
     for b, n, m in [(8, 512, 308), (4, 308, 185), (3, 1024, 615), (2, 128, 77)]:
         pos, valid, starts = _fps_case(r, dev, b, n, m)
@@ -985,9 +1035,11 @@ def phase_timing_patches(hand_out, hand180, lion, dev) -> dict:
         max_abs_err=_equal("knn", got, want, main_path_shape=True, shape=[B, nb, nb]),
         ms=cuda_ms(lambda: neighbors.knn_with_dist(pos1, pos1, k), 20, 1),
         plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-        library_ms=cuda_ms(lambda: torch.topk(d2, k, dim=-1, largest=False), 20, 1),
-        forward_shapes=_knn_forward_shapes(pos1, valid, nb, pool, m1, lens, dev))
+        library_ms=cuda_ms(lambda: torch.topk(d2, k, dim=-1, largest=False), 20, 1))
     del d2
+    res["knn"]["forward_shapes"], fps2 = _knn_forward_shapes(
+        pos1, valid, nb, pool, m1, lens, dev)
+    res["knn"]["ms_per_forward"] = sum(x["ms"] for x in res["knn"]["forward_shapes"])
     got = neighbors.fps_masked_batch(pos1, valid, m1, starts)
     plain_ms, want = timed(lambda: neighbors.fps_masked_batch_plain(pos1, valid, m1, starts))
     b = bound_ms(12 * B * nb + B * nb + 4 * B + 4 * B * m1,
@@ -996,19 +1048,22 @@ def phase_timing_patches(hand_out, hand180, lion, dev) -> dict:
         shape=f"{B} x {nb}, m={m1}",
         max_abs_err=_equal("fps", got, want, main_path_shape=True, shape=[B, nb]),
         ms=cuda_ms(lambda: neighbors.fps_masked_batch(pos1, valid, m1, starts), 20, 1),
-        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], second_launch=fps2)
     emit({"phase": "timing", "patch_kernels": res})
     _profile_forward(batch, valid, pointcnn.key_starts(prng.prng_key(1), lens, pool, m1),
                      dev)
     return res
 
 
-def _knn_forward_shapes(pos1, valid, nb, pool, m1, lens, dev) -> list:
+def _knn_forward_shapes(pos1, valid, nb, pool, m1, lens, dev):
     """kNN at each of the forward's five calls (PointCNN.forward_sels): the
     k = 20 self searches on the rows of the three pooling stages and the
     k = 16 interpolations between them, on the lion's first chunk; each
-    bit-equal to the plain search, its time, bound and launches per lion
-    call (the lion run's kNN launches over the five calls a forward)."""
+    bit-equal to the plain search, its time by CUDA events and by the
+    profiler's kernel time, its bound, the plain version's and torch.topk's
+    time, and its launches per lion call (the lion run's kNN launches over
+    the five calls a forward). Also the forward's second FPS (m2 of the m1
+    rows of pos2): (shapes, fps2)."""
     from dipole_tpu_torch.models import pointcnn
     from dipole_tpu_torch.ops import neighbors
     from dipole_tpu_torch.utils import prng
@@ -1029,15 +1084,53 @@ def _knn_forward_shapes(pos1, valid, nb, pool, m1, lens, dev) -> list:
                               ("self", pos3, pos3, 20), ("interpolate", pos2, pos3, 16),
                               ("interpolate", pos1, pos2, 16)):
         nd, ns = dst.shape[1], src.shape[1]
-        err = _equal("knn", neighbors.knn_with_dist(dst, src, k),
-                     neighbors.knn_with_dist_plain(dst, src, k),
+        plain_ms, want = timed(lambda: neighbors.knn_with_dist_plain(dst, src, k))
+        err = _equal("knn", neighbors.knn_with_dist(dst, src, k), want,
                      main_path_shape=True, shape=[B, nd, ns], k=k)
+        d2 = neighbors._sq_dist(dst[:, :, None, :], src[:, None, :, :])
         b = bound_ms(12 * B * (nd + ns) + 8 * B * nd * k, OPS_KNN * B * nd * ns)
+        # by CUDA events and by the profiler's kernel time: the wrapper's
+        # host cost shows in the first at these sizes
         out.append(dict(call=f"{what} {nd} <- {ns}, k={k}", shape=[B, nd, ns],
                         ms=cuda_ms(lambda: neighbors.knn_with_dist(dst, src, k), 20, 1),
+                        profiler_ms=profiled_ms(
+                            lambda: neighbors.knn_with_dist(dst, src, k), "knn_kernel", 20),
+                        plain_ms=plain_ms,
+                        library_ms=cuda_ms(lambda: torch.topk(d2, k, dim=-1, largest=False),
+                                           20, 1),
                         launches_per_lion_call=per_call, bound_ms=b[0],
                         bound_by=b[1], max_abs_err=err))
-    return out
+        del d2, want
+    # the second FPS: the m1 rows of pos2, m2 picks
+    s2 = st[:, 1]
+    plain_ms, want = timed(lambda: neighbors.fps_masked_batch_plain(pos2, valid2, m2, s2))
+    err = _equal("fps", neighbors.fps_masked_batch(pos2, valid2, m2, s2), want,
+                 main_path_shape=True, shape=[B, m1])
+    b = bound_ms(12 * B * m1 + B * m1 + 4 * B + 4 * B * m2, OPS_FPS * B * (m2 - 1) * m1)
+    fps2 = dict(shape=f"{B} x {m1}, m={m2}", max_abs_err=err, plain_ms=plain_ms,
+                ms=cuda_ms(lambda: neighbors.fps_masked_batch(pos2, valid2, m2, s2), 20, 1),
+                bound_ms=b[0], bound_by=b[1],
+                launches_per_lion_call=RUN_COUNTS["lion180k_orient_large"]["fps"] / 2)
+    return out, fps2
+
+
+def profiled_ms(fn, name: str, reps: int) -> float:
+    """Mean device time of the kernels whose name holds `name`, by
+    torch.profiler over reps calls of fn (after one warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key]
+    calls = sum(e.count for e in events)
+    require(calls > 0, f"profiler: no device kernel named {name}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / calls
 
 
 def _profile_forward(batch, valid, starts, dev) -> None:
@@ -1187,24 +1280,34 @@ def phase_checks_xie(gt10: np.ndarray, dev) -> dict:
             require(float(k[1000, 1001]) == 0.0 and float(k[1001, 1000]) == 0.0,
                     "xie_imatrix: non-finite pair not 0")
 
-    # xie greedy: quick size and 10k, from a nonzero start, with and without
-    # the kNN mask
-    for ng, start in ((2000, 17), (10000, 5)):
-        pcg = Transform.trans(scramble(gt10[:ng], SEED + ng))[0]
+    # xie greedy: 2000, 10000 and 30000 points from a nonzero start, and its
+    # launch shapes and ties (_xie_greedy_cases); each with and without the
+    # kNN mask
+    for label, pcg, start, kw, ties in _xie_greedy_cases(gt10, dev):
         IT = fields.xie_interaction_matrix(torch.as_tensor(pcg, device=dev),
                                            transposed=True)
+        if label == "many zero entries":
+            # most entries 0, some -0: many acc values tie at 0
+            z = torch.as_tensor(r.random(IT.shape) < 0.9, device=dev)
+            IT[z] = 0.0
+            IT[torch.as_tensor(r.random(IT.shape) < 0.05, device=dev)] = -0.0
         for kk in (0, 8):
             knn = (None if kk == 0 else
                    torch.as_tensor(propagate._knn_idx(pcg, kk), device=dev))
             t0 = time.perf_counter()
-            got = propagate_cuda.xie_greedy(IT, start, knn)
-            blocks = propagate_cuda.last_launch()["blocks"]
+            got = propagate_cuda.xie_greedy(IT, start, knn, **kw)
+            launch = propagate_cuda.last_launch()
             want = propagate.xie_greedy_plain(IT, start, knn)
             torch.cuda.synchronize()
+            n_ = len(pcg)
             errs["greedy_xie"] = max(errs["greedy_xie"], _equal(
-                "greedy_xie", got, want, n=ng, start=start, knn_mask=kk,
-                blocks=blocks, seconds=time.perf_counter() - t0))
+                "greedy_xie", got, want, case=label, n=n_, start=start, knn_mask=kk,
+                launch=launch, seconds=time.perf_counter() - t0))
             require(bool((got[1].abs() == 1).all()), "greedy_xie: a sign is not +-1")
+            if ties and not kk:   # (the mask may keep one twin, not the other)
+                h = n_ // 2
+                require(torch.equal(got[0][:h], got[0][h:2 * h]),
+                        f"greedy_xie: the duplicated points' acc differ ({label})")
         del IT
 
     # replay: T in {1, 3, 9}, xie and dipole, kNN mask and points_weight
@@ -1242,6 +1345,37 @@ def phase_checks_xie(gt10: np.ndarray, dev) -> dict:
                          knn_mask=masked, points_weight=True),
                     I, orders, knn if masked else None, colw))
     return errs
+
+
+def _xie_greedy_cases(gt10: np.ndarray, dev) -> list:
+    """(label, cloud, start, wrapper kwargs, ties) of the xie greedy checks:
+    2000, 10000 and 30000 points (the server's cap); a cloud whose second
+    half duplicates its first, on one block and across 6 (exact ties in
+    acc, each pair in two blocks); both sides of the one-block limit; one
+    block of 8 points a thread; a matrix with most entries 0."""
+    from dipole_tpu_torch.ops import propagate_cuda
+    from dipole_tpu_torch.utils.io import Transform
+
+    def cloud(n, seed, ties=False):
+        base = gt10 if n <= len(gt10) else ellipsoid(n, SEED + 30)
+        pc = Transform.trans(scramble(base[:n], seed))[0]
+        if ties:
+            pc[n // 2:] = pc[:n // 2]
+        return pc
+
+    thr = propagate_cuda.one_block_max_n("xie")
+    return [
+        ("2000", cloud(2000, SEED + 2000), 17, {}, False),
+        ("10000", cloud(10000, SEED + 10000), 5, {}, False),
+        ("30000", cloud(30000, SEED + 30000), 29, {}, False),
+        ("ties, one block", cloud(3000, SEED + 3001, True), 3, {}, True),
+        ("ties across 6 blocks", cloud(6000, SEED + 6000, True), 3, {"_blocks": 6}, True),
+        ("one-block limit", cloud(thr, SEED + thr), 7, {}, False),
+        ("one-block limit + 1", cloud(thr + 1, SEED + thr + 1), 7, {}, False),
+        ("one block, 8 points a thread", cloud(8192, SEED + 8192), 7,
+         {"_blocks": 1}, False),
+        ("many zero entries", cloud(4000, SEED + 4000), 11, {"_blocks": 4}, False),
+    ]
 
 
 XIE_RUNS = (("xie10k", 10000, "xie", {}),
@@ -1305,9 +1439,10 @@ def _timed_orient(timer, orient, inp, method, kw):
 
 def phase_timing_xie(gt10, gt30, dev) -> dict:
     """The xie slice's kernels at the main path's shapes: the xie matrix at
-    30k (tree_xie, I) and 10k (xie, I^T), the xie greedy at 10k, the replay
-    of the tree_xie run's three BFS orders at 30k; the kernel held to its
-    plain version there too."""
+    30k (tree_xie, I) and 10k (xie, I^T), the xie greedy at 10k, masked
+    (k = 8) at 10k and at 30k, with its one-block limit, the replay of the
+    tree_xie run's three BFS orders at 30k; the kernel held to its plain
+    version there too."""
     from dipole_tpu_torch.ops import fields, propagate, propagate_cuda
     from dipole_tpu_torch.ops.estimate import estimate_normals
     from dipole_tpu_torch.utils.io import Transform
@@ -1340,17 +1475,9 @@ def phase_timing_xie(gt10, gt30, dev) -> dict:
         del I
     res["xie_imatrix"] = {**sizes["30k_I"], "other_shapes": {"10k_IT": sizes["10k_IT"]}}
 
-    IT = fields.xie_interaction_matrix(p10, transposed=True)
-    got = propagate_cuda.xie_greedy(IT, 0)
-    blocks = propagate_cuda.last_launch()["blocks"]
-    plain_ms, want = timed(lambda: propagate.xie_greedy_plain(IT, 0))
-    b = bound_ms(4 * n10 * n10 + 12 * n10, OPS_GREEDY_XIE * n10 * (n10 - 1))
-    res["greedy_xie"] = dict(
-        shape=f"{n10} points", blocks=blocks,
-        max_abs_err=_equal("greedy_xie", got, want, n=n10, main_path_shape=True),
-        ms=cuda_ms(lambda: propagate_cuda.xie_greedy(IT, 0), 3, 0),
-        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
-    del IT
+    res["greedy_xie"] = time_xie_greedy(
+        (("10k", p10, None), ("10k_masked_k8", p10, propagate._knn_idx(pc10, 8)),
+         ("30k", p30, None)), (2048, 3072, 4096, 5120, 6144, 7168, 8192))
 
     orders_np, _ = propagate.bfs_orders(pc30, 0, times=3)
     orders = torch.as_tensor(orders_np, device=dev)
@@ -1379,6 +1506,48 @@ def phase_timing_xie(gt10, gt30, dev) -> dict:
     del I
     emit({"phase": "timing", "xie_kernels": res})
     return res
+
+
+def time_xie_greedy(runs, threshold_sizes) -> dict:
+    """The xie greedy at each (label, cloud, kNN index or None) of runs,
+    held to its plain version, with its bound; the first run's entry
+    carries the others and one block against a grid of ceil(n / 1024)
+    blocks at each of threshold_sizes (points of the first cloud)."""
+    from dipole_tpu_torch.ops import fields, propagate, propagate_cuda
+
+    xie = {}
+    for label, p, knn_np in runs:
+        n = len(p)
+        knn = None if knn_np is None else torch.as_tensor(knn_np, device=p.device)
+        IT = fields.xie_interaction_matrix(p, transposed=True)
+        got = propagate_cuda.xie_greedy(IT, 0, knn)
+        blocks = propagate_cuda.last_launch()["blocks"]
+        plain_ms, want = timed(lambda: propagate.xie_greedy_plain(IT, 0, knn))
+        # masked, the loop needs only the mask's n k entries of IT and the
+        # mask itself
+        k = 0 if knn is None else knn.shape[1]
+        b = bound_ms((4 * n * n if not k else 8 * n * k) + 12 * n,
+                     OPS_GREEDY_XIE * n * (n - 1))
+        ms = cuda_ms(lambda: propagate_cuda.xie_greedy(IT, 0, knn), 3, 0)
+        xie[label] = dict(
+            shape=f"{n} points" + (f", kNN mask k={k}" if k else ""),
+            blocks=blocks, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+            max_abs_err=_equal("greedy_xie", got, want, n=n, knn_mask=k,
+                               main_path_shape=True),
+            ms=ms, us_per_step=1e3 * ms / (n - 1))
+        del IT, want
+    first = runs[0][1]
+    threshold = []
+    for n in threshold_sizes:
+        IT = fields.xie_interaction_matrix(first[:n].contiguous(), transposed=True)
+        for blocks in (1, -(-n // 1024)):
+            ms = cuda_ms(lambda: propagate_cuda.xie_greedy(IT, 0, _blocks=blocks), 3, 1)
+            threshold.append({"n": n, "ms": ms, "us_per_step": 1e3 * ms / (n - 1),
+                              **propagate_cuda.last_launch()})
+        del IT
+    label = runs[0][0]
+    return {**xie[label], "other_shapes": {k: v for k, v in xie.items() if k != label},
+            "one_block_threshold": threshold}
 
 
 def _profile_replay(I, orders) -> dict:

@@ -18,8 +18,23 @@
 //               symmetry, as in the JAX scan);
 //   column mode computes column c on the fly from the cloud, the formula of
 //               propagate.py:_dipole_column (109-124).
-// A third loop, the xie mode (xie_greedy_kernel below), runs the mirror-field
-// propagation over rows of the transposed xie matrix on the same grid.
+// A third mode, the xie mode, runs the mirror-field loop (the XLA scan
+// dipole_tpu/ops/propagate.py:_xie_greedy_scan, :509-555) over rows of the
+// transposed xie matrix IT, on the same grid, state and exchange. It keeps
+// a rate vector beside acc: rate starts as the start point's column and acc
+// at 0; each step adds rate to acc, picks the unvisited point with the
+// largest SIGNED acc (ties to the lowest index), sets its sign to -1 iff its
+// acc < 0, and adds sign x its column to rate, in that order. So it sweeps n
+// times, picks n - 1 times, and adds rate to acc in all but the last sweep
+// (the JAX scan's n - 1 steps). Column c of I is the contiguous row c of
+// IT. With a kNN mask (knn (n, k), k <= 256, in index form) column c is
+// multiplied by 1 at the rows knn[c] and by 0 elsewhere, as the JAX scan
+// does, without a dense mask: once a step's winner is known, warp 0 of each
+// block marks the mask rows that the block owns in a word of shared memory
+// per thread (bit j: the thread's j-th point), which each owner reads and
+// clears in its next sweep. The marks ride on the barrier that hands the
+// winner to the block; no other barrier, and no element compares itself
+// with the k rows.
 //
 // What bounds it on an H100: latency. The N - 1 picks depend on each other:
 // step k + 1's column is that of step k's winner, a global argmax over all of
@@ -44,10 +59,16 @@
 //     kPointsPerSM points a block (1.08M on 132 SMs) fit; above that, or
 //     above a lower cap that only tests pass, the kPer = 0 instance keeps
 //     acc and sign in global memory, so the whole range up to 2^24 stays.
+//     The xie mode keeps rate in registers too and has no such instance:
+//     its n x n matrix keeps n far below what the registers hold, and the
+//     entry point refuses more.
 //   - a candidate is one 64-bit key whose unsigned order is the greedy's:
 //     the bits of |acc| (a non-negative float orders as its bits), then
 //     2^24 - index (ties to the lowest index; so n <= 2^24), then the sign
-//     of acc. Warps reduce keys with two __reduce_max_sync, not chains of
+//     of acc. The xie mode orders by the signed acc instead: the float's
+//     bits with all of them flipped if it is negative, else with the sign
+//     bit set, -0 and +0 as one value (torch.argmax holds them equal).
+//     Warps reduce keys with two __reduce_max_sync, not chains of
 //     shuffles of (|acc|, index, acc). The key with the step's tag in six
 //     free bits is what a block publishes: one 8-byte word, read whole
 //     (single-copy atomic), so it needs no flag beside it and no fence (a
@@ -72,76 +93,38 @@
 // of step k - 2 left in the same place. So no word is overwritten before
 // every block has read it, and none is read stale. Up to a few thousand
 // points the grid is one block, which needs no exchange at all; one block
-// computes 1-8 column entries a thread a step, so the column mode's
-// threshold lies lower than the row mode's (chip_smoke.py times both sides
-// of each). The block shape
+// computes 1-8 column entries a thread a step, and the xie mode updates
+// rate and acc, so the column and xie modes' threshold lies lower than the
+// row mode's (chip_smoke.py times both sides of each). The block shape
 // (1024 threads, against 256 and 512) was measured too (PERF.md).
 //
 // Arithmetic: compiled with -fmad=false; sqrtf and / are IEEE, and the
 // column follows propagate.py:_dipole_column term for term in the plain
 // torch version's order (two divides, not the Pallas kernels'
-// single-reciprocal form of propagate_pallas.py:73-74). The acc update adds
-// s x col with s = +-1, which is exact before the one rounding of the add.
-// So the kernel and its plain version agree bit for bit in acc and sign.
-
-#include <climits>
-#include <cooperative_groups.h>
+// single-reciprocal form of propagate_pallas.py:73-74). The acc (and xie
+// rate) update adds s x col with s = +-1, which is exact before the one
+// rounding of the add; the xie mask multiplies by 1 or 0 as the plain
+// version does. So the kernel and its plain version agree bit for bit in
+// acc and sign.
 
 #include "common.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int kThreads = 1024;               // a block, every mode
-constexpr int kOneBlockMaxN = 3 * kThreads;  // xie mode's one-block limit
-constexpr int kMaxK = 256;  // kNN mask width of the xie mode
-// the greedy's owner-state kernel
+constexpr int kThreads = 1024;            // a block, every mode
+constexpr int kMaxK = 256;                // kNN mask width of the xie mode
 constexpr int kPointsPerSM = 8192;        // state held by one block
 constexpr int kMaxPer = kPointsPerSM / kThreads;  // points a thread
 // one block up to these many points (measured, PERF.md)
 constexpr int kRowsOneBlockMaxN = 5120;
 constexpr int kColumnsOneBlockMaxN = 4096;
+constexpr int kXieOneBlockMaxN = 4096;
 constexpr int kMaxN = 1 << 24;            // the key's index field
 constexpr int kPoll = 8;                  // words a lane polls: <= 256 blocks
 constexpr unsigned kFull = 0xffffffffu;
 
-struct Cand {
-  float v;  // |acc| of an unvisited point
-  int i;    // its index
-  float a;  // its signed acc
-};
-
-__device__ __forceinline__ bool better(float v, int i, const Cand& b) {
-  return v > b.v || (v == b.v && i < b.i);
-}
-
-__device__ __forceinline__ void warp_reduce(Cand& b) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v = __shfl_down_sync(0xffffffffu, b.v, off);
-    const int i = __shfl_down_sync(0xffffffffu, b.i, off);
-    const float a = __shfl_down_sync(0xffffffffu, b.a, off);
-    if (better(v, i, b)) b = Cand{v, i, a};
-  }
-}
-
-// Block-wide (max, min-index) reduction; every thread gets the result.
-__device__ Cand block_reduce(Cand b, Cand* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  warp_reduce(b);
-  if (lane == 0) sh[warp] = b;
-  __syncthreads();
-  if (warp == 0) {
-    b = lane < (int)(blockDim.x >> 5) ? sh[lane] : Cand{-INFINITY, INT_MAX, 0.f};
-    warp_reduce(b);
-    if (lane == 0) sh[32] = b;
-  }
-  __syncthreads();
-  const Cand r = sh[32];
-  __syncthreads();
-  return r;
-}
+// The update modes (see the note at the top); the C entry points' `mode`.
+enum Mode { kColumns = 0, kRows = 1, kXie = 2 };
 
 // I[i, c] = E_c(x_i) . n_i; p points at point i's x in a channel-major
 // array [x, y, z, nx, ny, nz] whose planes lie `plane` floats apart.
@@ -188,6 +171,16 @@ __device__ __forceinline__ unsigned long long cand_key(float a, int i) {
          ((unsigned)((1 << 24) - i) << 1) | (a < 0.f ? 1u : 0u);
 }
 
+// The xie mode's key: the same low word, above it the signed acc in an
+// unsigned order (negative floats with every bit flipped, the others with
+// the sign bit set), -0 taken as +0.
+__device__ __forceinline__ unsigned long long xie_key(float a, int i) {
+  const unsigned u = __float_as_uint(a == 0.f ? 0.f : a);
+  const unsigned ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)ord << 32) |
+         ((unsigned)((1 << 24) - i) << 1) | (a < 0.f ? 1u : 0u);
+}
+
 __device__ __forceinline__ int key_index(unsigned long long k) {
   return (1 << 24) - (int)(((unsigned)k >> 1) & 0x1ffffffu);
 }
@@ -199,20 +192,39 @@ __device__ __forceinline__ unsigned long long warp_max_key(unsigned long long k)
   return ((unsigned long long)hi << 32) | lo;
 }
 
+// Xie mode, masked: marks in hits the rows of knn[c] (column c's kept
+// entries) that this block owns, bit j of word t for the point
+// blockIdx.x T + t + j G T; lanes from `first` on, `step` apart.
+__device__ __forceinline__ void mark_hits(const int* __restrict__ knn, int k,
+                                          int c, int n, int stride,
+                                          unsigned* hits, int first, int step) {
+  for (int m = first; m < k; m += step) {
+    const int i = knn[(size_t)c * k + m];
+    if (i < 0 || i >= n) continue;  // selects nothing, as in the JAX scan
+    const int j = i / stride, r = i - j * stride;
+    if (r / kThreads == (int)blockIdx.x) atomicOr(hits + r % kThreads, 1u << j);
+  }
+}
+
 // The greedy with the state kept by its owner (see the note at the top).
-// kPer > 0: kPer points a thread, acc in registers, visited and sign as bits,
-// coordinates (column mode) in shared memory; kPer == 0: acc and sign in
-// global memory. Blocks of kThreads; slots: 2 x gridDim.x words, zero on
-// entry.
-template <bool kRows, int kPer>
+// kPer > 0: kPer points a thread, acc (and the xie rate) in registers,
+// visited and sign as bits, coordinates (column mode) in shared memory;
+// kPer == 0 (row and column modes only): acc and sign in global memory.
+// Blocks of kThreads; slots: 2 x gridDim.x words, zero on entry; knn and k:
+// the xie mode's mask (k == 0: none).
+template <int kMode, int kPer>
 __global__ void __launch_bounds__(kThreads, 1)
 greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
+                    const int* __restrict__ knn, int k,
                     float* __restrict__ acc_out, float* __restrict__ sign_out,
                     unsigned long long* __restrict__ slots) {
+  static_assert(kMode != kXie || kPer > 0, "the xie mode keeps its state in registers");
+  constexpr bool kCols = kMode == kColumns;
   extern __shared__ float sh_pts[];  // column mode, kPer > 0: 6 planes of kPer T
   __shared__ unsigned long long wsh[32];
   __shared__ unsigned long long win_key;
   __shared__ float win_p[6];
+  __shared__ unsigned hits[kMode == kXie ? kThreads : 1];  // xie mode, masked
   constexpr int kSlots = kPer > 0 ? kPer : 1;
   constexpr int T = kThreads;
   const size_t nn = n;
@@ -221,9 +233,10 @@ greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
   const int tid = blockIdx.x * T + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int P = kPer * T;
-  float acc[kSlots];
+  const bool masked = kMode == kXie && k > 0;
+  float acc[kSlots], rate[kSlots];
   unsigned vis = 0u, neg = 0u;  // bit j: point j visited; its sign is -1
-  if (!kRows && kPer > 0) {
+  if (kCols && kPer > 0) {
 #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
       const int i = tid + j * stride;
@@ -235,52 +248,78 @@ greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
   int c = start;
   float s = 1.f;
   float src[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (!kRows) {
+  if (kCols) {
 #pragma unroll
     for (int ch = 0; ch < 6; ++ch) src[ch] = data[ch * nn + c];
   }
+  if (masked) {  // the start point's column
+    hits[threadIdx.x] = 0u;
+    __syncthreads();
+    mark_hits(knn, k, c, n, stride, hits, threadIdx.x, T);
+    __syncthreads();
+  }
   for (int step = 0; step < n; ++step) {
     unsigned long long best = 0ull;
-    if (kPer > 0) {
-      // row mode: every entry of the row the thread needs, loaded at once
-      // (one after the other, they cost a memory latency each)
+    if constexpr (kPer > 0) {
+      // row and xie modes: every entry of the row the thread needs, loaded
+      // at once (one after the other, they cost a memory latency each)
       float row[kSlots];
-      if (kRows) {
+      if (!kCols) {
 #pragma unroll
         for (int j = 0; j < kSlots; ++j) {
           const int i = tid + j * stride;
           row[j] = i < n ? data[(size_t)c * nn + i] : 0.f;
         }
       }
+      unsigned hw = 0u;
+      if (masked) {
+        hw = hits[threadIdx.x];
+        hits[threadIdx.x] = 0u;
+      }
+      const bool add = step < n - 1;  // xie: acc += rate, then a pick
 #pragma unroll
       for (int j = 0; j < kSlots; ++j) {
         const int i = tid + j * stride;
         if (i < n) {
           const unsigned bit = 1u << j;
-          const float col =
-              kRows ? row[j]
-                    : column_entry(sh_pts + j * T + threadIdx.x, P, src[0], src[1],
-                                   src[2], src[3], src[4], src[5], eps);
           float a;
-          if (step == 0) {
-            a = col;
-            if (i == start) vis |= bit;
-          } else {
-            a = acc[j] + s * col;
+          if constexpr (kMode == kXie) {
+            const float v = masked ? row[j] * ((hw & bit) ? 1.f : 0.f) : row[j];
+            const float r = step == 0 ? v : rate[j] + s * v;
+            a = step == 0 ? 0.f : acc[j];
+            if (add) a = a + r;
+            rate[j] = r;
             if (i == c) {
               vis |= bit;
               if (s < 0.f) neg |= bit;
             }
+            acc[j] = a;
+            if (add && !(vis & bit)) best = max(best, xie_key(a, i));
+          } else {
+            const float col =
+                kCols ? column_entry(sh_pts + j * T + threadIdx.x, P, src[0], src[1],
+                                     src[2], src[3], src[4], src[5], eps)
+                      : row[j];
+            if (step == 0) {
+              a = col;
+              if (i == start) vis |= bit;
+            } else {
+              a = acc[j] + s * col;
+              if (i == c) {
+                vis |= bit;
+                if (s < 0.f) neg |= bit;
+              }
+            }
+            acc[j] = a;
+            if (!(vis & bit)) best = max(best, cand_key(a, i));
           }
-          acc[j] = a;
-          if (!(vis & bit)) best = max(best, cand_key(a, i));
         }
       }
     } else {
       for (int i = tid; i < n; i += stride) {
-        const float col = kRows ? data[(size_t)c * nn + i]
-                                : column_entry(data + i, nn, src[0], src[1], src[2],
-                                               src[3], src[4], src[5], eps);
+        const float col = kCols ? column_entry(data + i, nn, src[0], src[1], src[2],
+                                               src[3], src[4], src[5], eps)
+                                : data[(size_t)c * nn + i];
         float a, sg;
         if (step == 0) {
           a = col;
@@ -304,17 +343,15 @@ greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
     __syncthreads();
     if (warp == 0) {
       const unsigned long long b = warp_max_key(lane < (T >> 5) ? wsh[lane] : 0ull);
+      unsigned long long w = b;
       if (G == 1) {
-        if (lane == 0) {
-          win_key = b;
-          if (!kRows && b != 0ull) {
-            // one block owns every point: point i's coordinates are at i in
-            // shared memory (kPer > 0), or in the cloud
-            const int i = key_index(b);
+        if (lane == 0 && kCols && b != 0ull) {
+          // one block owns every point: point i's coordinates are at i in
+          // shared memory (kPer > 0), or in the cloud
+          const int i = key_index(b);
 #pragma unroll
-            for (int ch = 0; ch < 6; ++ch) {
-              win_p[ch] = kPer > 0 ? sh_pts[ch * P + i] : data[ch * nn + i];
-            }
+          for (int ch = 0; ch < 6; ++ch) {
+            win_p[ch] = kPer > 0 ? sh_pts[ch * P + i] : data[ch * nn + i];
           }
         }
       } else {
@@ -343,30 +380,32 @@ greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
         }
         // the coordinates of the lane's best, fetched while the warp reduces
         float p[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (!kRows && mine != 0ull) {
+        if (kCols && mine != 0ull) {
           const int i = key_index(mine);
 #pragma unroll
           for (int ch = 0; ch < 6; ++ch) p[ch] = __ldg(data + ch * nn + i);
         }
-        const unsigned long long w = warp_max_key(mine);
-        if (!kRows) {
+        w = warp_max_key(mine);
+        if (kCols) {
           const unsigned hit = __ballot_sync(kFull, mine == w);
           const int from = hit ? __ffs(hit) - 1 : 0;
 #pragma unroll
           for (int ch = 0; ch < 6; ++ch) p[ch] = __shfl_sync(kFull, p[ch], from);
         }
-        if (lane == 0) {
-          win_key = w;
+        if (lane == 0 && kCols) {
 #pragma unroll
           for (int ch = 0; ch < 6; ++ch) win_p[ch] = p[ch];
         }
       }
+      if (lane == 0) win_key = w;
+      // the owners read and cleared last step's marks before the barrier above
+      if (masked && w != 0ull) mark_hits(knn, k, key_index(w), n, stride, hits, lane, 32);
     }
     __syncthreads();
     const unsigned long long w = win_key;
     c = key_index(w);
     s = (w & 1ull) ? -1.f : 1.f;
-    if (!kRows) {
+    if (kCols) {
 #pragma unroll
       for (int ch = 0; ch < 6; ++ch) src[ch] = win_p[ch];
     }
@@ -381,95 +420,6 @@ greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
         sign_out[i] = (vis & bit) ? ((neg & bit) ? -1.f : 1.f) : 0.f;
       }
     }
-  }
-}
-
-// The mirror-field ("xie") sequential loop (xie mode), which replaces the
-// XLA scan dipole_tpu/ops/propagate.py:_xie_greedy_scan (:509-555). It
-// keeps a rate vector besides acc: rate starts as the start point's column
-// and acc at 0; each step adds rate to acc, picks the unvisited point with
-// the largest SIGNED acc (ties to the lowest index), sets its sign to -1 iff
-// its acc < 0, and adds sign x its column to rate, in that order. IT is the
-// (n, n) transposed xie matrix, so column c of I is the contiguous row c of
-// IT. knn (n, k), when k > 0, is the kNN mask in index form: column c is
-// multiplied by 1 at the rows knn[c] and by 0 elsewhere, as the JAX scan
-// does, without a dense mask. Every update is elementwise with s = +-1, so
-// kernel and plain version agree bit for bit in acc and sign. The grid, the
-// candidate reduction and the one barrier per step are the greedy's above;
-// the sweep count is the same: n sweeps, n - 1 picks, and acc += rate in
-// all but the last sweep (n - 1 additions, as the JAX scan's n - 1 steps).
-__global__ void __launch_bounds__(kThreads, 1)
-xie_greedy_kernel(const float* __restrict__ IT, int n, int start,
-                  const int* __restrict__ knn, int k,
-                  float* __restrict__ acc, float* __restrict__ rate,
-                  float* __restrict__ sign, float* __restrict__ part_v,
-                  int* __restrict__ part_i, float* __restrict__ part_a) {
-  __shared__ Cand sh[33];
-  __shared__ int hits[kMaxK];
-  const size_t nn = n;
-  const int stride = gridDim.x * blockDim.x;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  int c = start;
-  float s = 1.f;
-  for (int step = 0; step < n; ++step) {
-    if (k > 0) {
-      for (int m = threadIdx.x; m < k; m += blockDim.x) {
-        hits[m] = knn[(size_t)c * k + m];
-      }
-      __syncthreads();
-    }
-    const float* col = IT + (size_t)c * nn;
-    const bool add = step < n - 1;
-    Cand best{-INFINITY, INT_MAX, 0.f};
-    for (int i = tid; i < n; i += stride) {
-      float v = col[i];
-      if (k > 0) {
-        bool hit = false;
-        for (int m = 0; m < k; ++m) hit |= hits[m] == i;
-        v = v * (hit ? 1.f : 0.f);
-      }
-      float r, a, sg;
-      if (step == 0) {
-        r = v;
-        sg = (i == start) ? 1.f : 0.f;
-        sign[i] = sg;
-        a = add ? 0.f + r : 0.f;
-      } else {
-        sg = sign[i];
-        if (i == c) {
-          sg = s;
-          sign[i] = s;
-        }
-        r = rate[i] + s * v;
-        a = acc[i];
-        if (add) a = a + r;
-      }
-      rate[i] = r;
-      acc[i] = a;
-      if (sg == 0.f && better(a, i, best)) best = Cand{a, i, a};
-    }
-    if (!add) break;
-    best = block_reduce(best, sh);
-    const int slot = (step & 1) * gridDim.x;
-    if (threadIdx.x == 0) {
-      part_v[slot + blockIdx.x] = best.v;
-      part_i[slot + blockIdx.x] = best.i;
-      part_a[slot + blockIdx.x] = best.a;
-    }
-    if (gridDim.x > 1) {
-      cg::this_grid().sync();
-    } else {
-      __syncthreads();
-    }
-    Cand win{-INFINITY, INT_MAX, 0.f};
-    for (int q = threadIdx.x; q < (int)gridDim.x; q += blockDim.x) {
-      const float v = __ldcg(part_v + slot + q);
-      const int i = __ldcg(part_i + slot + q);
-      if (better(v, i, win)) win = Cand{v, i, __ldcg(part_a + slot + q)};
-    }
-    win = block_reduce(win, sh);
-    c = win.i;
-    s = win.a < 0.f ? -1.f : 1.f;
   }
 }
 
@@ -504,14 +454,25 @@ int grid_blocks(int n, int one_block_max_n, int sms) {
   return n <= one_block_max_n ? 1 : min((n + kThreads - 1) / kThreads, sms);
 }
 
-template <bool kRows>
+template <int kMode>
 void* owner_kernel(int per) {
   switch (per) {
-    case 0: return (void*)greedy_owner_kernel<kRows, 0>;
-    case 1: return (void*)greedy_owner_kernel<kRows, 1>;
-    case 2: return (void*)greedy_owner_kernel<kRows, 2>;
-    case 4: return (void*)greedy_owner_kernel<kRows, 4>;
-    case 8: return (void*)greedy_owner_kernel<kRows, 8>;
+    case 0:
+      if constexpr (kMode != kXie) return (void*)greedy_owner_kernel<kMode, 0>;
+      return nullptr;
+    case 1: return (void*)greedy_owner_kernel<kMode, 1>;
+    case 2: return (void*)greedy_owner_kernel<kMode, 2>;
+    case 4: return (void*)greedy_owner_kernel<kMode, 4>;
+    case 8: return (void*)greedy_owner_kernel<kMode, 8>;
+  }
+  return nullptr;
+}
+
+void* owner_kernel(int mode, int per) {
+  switch (mode) {
+    case kColumns: return owner_kernel<kColumns>(per);
+    case kRows: return owner_kernel<kRows>(per);
+    case kXie: return owner_kernel<kXie>(per);
   }
   return nullptr;
 }
@@ -521,34 +482,38 @@ void* owner_kernel(int per) {
 extern "C" {
 
 // The most points dipole_greedy runs on one block when not told otherwise,
-// in row mode (rows != 0) or column mode.
-int dipole_greedy_one_block_max_n(int rows) {
-  return rows ? kRowsOneBlockMaxN : kColumnsOneBlockMaxN;
+// in the given mode (0 columns, 1 rows, 2 xie; Mode above).
+int dipole_greedy_one_block_max_n(int mode) {
+  return mode == kColumns ? kColumnsOneBlockMaxN
+                          : mode == kRows ? kRowsOneBlockMaxN : kXieOneBlockMaxN;
 }
 
-// Runs the greedy over n <= 2^24 points from `start`. rows != 0: data is
-// the (n, n) row-major interaction matrix; rows == 0: data is the (6, n)
-// channel-major cloud [x, y, z, nx, ny, nz] and eps enters the column.
-// acc and sign are (n,) outputs. slots: 2 x capacity words, zero on entry.
-// The grid: `blocks` if > 0, else one block up to
-// dipole_greedy_one_block_max_n(rows) points, above that one block per SM
-// or fewer for small n; never more than
-// the SMs or `capacity`. The state stays in registers and shared memory
-// while n <= the SMs x kPointsPerSM and n <= reg_cap (if reg_cap > 0), else
-// in global memory. info receives (blocks, points a thread; 0 for global
-// state). Returns a cudaError_t value (0 on success).
-int dipole_greedy(const float* data, int n, int start, float eps, int rows,
-                  float* acc, float* sign, unsigned long long* slots,
-                  int capacity, int reg_cap, int blocks, int* info,
-                  cudaStream_t stream) {
-  if (n <= 0 || n > kMaxN || start < 0 || start >= n || capacity < 1 || blocks < 0) {
+// Runs the greedy over n <= 2^24 points from `start` in the given mode:
+// rows (1), data the (n, n) row-major interaction matrix; columns (0),
+// data the (6, n) channel-major cloud [x, y, z, nx, ny, nz], eps entering
+// the column; xie (2), data the (n, n) transposed xie matrix, knn (n, k)
+// int32 its mask (k == 0: none, k <= 256). acc and sign are (n,) outputs.
+// slots: 2 x capacity words, zero on entry. The grid: `blocks` if > 0,
+// else one block up to dipole_greedy_one_block_max_n(mode) points, above
+// that one block per SM or fewer for small n; never more than the SMs or
+// `capacity`. The state stays in registers and shared memory while n <=
+// the SMs x kPointsPerSM and n <= reg_cap (if reg_cap > 0), else in global
+// memory; the xie mode refuses the latter. info receives (blocks, points a
+// thread; 0 for global state). Returns a cudaError_t value (0 on success).
+int dipole_greedy(const float* data, int n, int start, float eps, int mode,
+                  const int* knn, int k, float* acc, float* sign,
+                  unsigned long long* slots, int capacity, int reg_cap,
+                  int blocks, int* info, cudaStream_t stream) {
+  if (n <= 0 || n > kMaxN || start < 0 || start >= n || capacity < 1 || blocks < 0 ||
+      mode < kColumns || mode > kXie || k < 0 || k > kMaxK ||
+      (k > 0 && (mode != kXie || knn == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int sms = 0;
   int e = coop_sms(&sms);
   if (e != 0) return e;
   int g = blocks > 0 ? blocks
-                     : grid_blocks(n, dipole_greedy_one_block_max_n(rows), sms);
+                     : grid_blocks(n, dipole_greedy_one_block_max_n(mode), sms);
   g = min(g, min(min(sms, capacity), 32 * kPoll));
   long long cap = (long long)sms * kPointsPerSM;
   if (reg_cap > 0) cap = min(cap, (long long)reg_cap);
@@ -557,8 +522,10 @@ int dipole_greedy(const float* data, int n, int start, float eps, int rows,
   int per = 1;
   while (per < need) per <<= 1;
   if (n > cap || per > kMaxPer) per = 0;
-  void* kernel = rows ? owner_kernel<true>(per) : owner_kernel<false>(per);
-  const size_t smem = (!rows && per > 0) ? sizeof(float) * 6 * per * kThreads : 0;
+  if (mode == kXie && per == 0) return static_cast<int>(cudaErrorInvalidValue);
+  void* kernel = owner_kernel(mode, per);
+  const size_t smem =
+      (mode == kColumns && per > 0) ? sizeof(float) * 6 * per * kThreads : 0;
   // above 48 KB with the static part: set for every size
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -567,43 +534,10 @@ int dipole_greedy(const float* data, int n, int start, float eps, int rows,
   if (e != 0) return e;
   info[0] = g;
   info[1] = per;
-  void* args[] = {(void*)&data, (void*)&n,    (void*)&start, (void*)&eps,
-                  (void*)&acc,  (void*)&sign, (void*)&slots};
+  void* args[] = {(void*)&data, (void*)&n,   (void*)&start, (void*)&eps,
+                  (void*)&knn,  (void*)&k,   (void*)&acc,   (void*)&sign,
+                  (void*)&slots};
   err = cudaLaunchCooperativeKernel(kernel, dim3(g), dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
-// The xie mode: the loop of xie_greedy_kernel over the (n, n) transposed
-// xie matrix IT from `start`; knn (n, k) int32 or k == 0 for no mask. acc,
-// rate and sign are (n,) outputs; part_v/part_i/part_a are scratch of
-// 2 x part_capacity entries each. The grid: one block up to kOneBlockMaxN
-// points, above that one block per SM or fewer for small n, never more than
-// part_capacity.
-// Returns a cudaError_t value (0 on success).
-int dipole_xie_greedy(const float* IT, int n, int start, const int* knn,
-                      int k, float* acc, float* rate, float* sign,
-                      float* part_v, int* part_i, float* part_a,
-                      int part_capacity, int* blocks_out,
-                      cudaStream_t stream) {
-  if (n <= 0 || start < 0 || start >= n || k < 0 || k > kMaxK ||
-      (k > 0 && knn == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  void* kernel = (void*)xie_greedy_kernel;
-  int sms = 0;
-  int e = coop_sms(&sms);
-  if (e == 0) e = check_resident(kernel, 0);
-  if (e != 0) return e;
-  const int blocks = min(grid_blocks(n, kOneBlockMaxN, sms), part_capacity);
-  *blocks_out = blocks;
-  void* args[] = {(void*)&IT,   (void*)&n,      (void*)&start,
-                  (void*)&knn,  (void*)&k,      (void*)&acc,
-                  (void*)&rate, (void*)&sign,   (void*)&part_v,
-                  (void*)&part_i, (void*)&part_a};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(blocks),
-                                                dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,11 @@ Two tiers, with the JAX package's boundary:
   * above it: compute column c on the fly each step
     (propagate.py:_dipole_column).
 Both tiers run exactly N-1 steps. On a CPU tensor the plain torch loops below
-run; on a CUDA tensor the kernel of ops/propagate_cuda.py runs, or the call
-raises. The ceiling is the JAX package's 2^24 points on every device.
+run, at any size, as the JAX package's XLA scan does; on a CUDA tensor the
+kernel of ops/propagate_cuda.py runs, or the call raises. Only the kernel has
+a ceiling: its candidate key holds 2^24 point indices, and its wrappers
+refuse a larger cloud (the JAX package's Pallas chain stops at the same
+2^24).
 
 Decisions replicate the JAX package: ties go to the lowest index
 (torch.argmax returns the first maximum), a step flips when acc < 0, and the
@@ -49,10 +52,9 @@ __all__ = ["greedy_sign_sequence", "strongest_field_propagation_points",
            "bfs_orders", "align_and_vote",
            "greedy_rows_plain", "greedy_columns_plain", "xie_greedy_plain",
            "replay_plain", "dipole_column",
-           "MATRIX_LIMIT", "MAX_POINTS", "PLAIN_CUDA_CALLS"]
+           "MATRIX_LIMIT", "PLAIN_CUDA_CALLS"]
 
 MATRIX_LIMIT = 10000
-MAX_POINTS = propagate_cuda.MAX_POINTS   # the greedy kernel's index field
 
 PLAIN_CUDA_CALLS = {"greedy_rows": 0, "greedy_columns": 0, "greedy_xie": 0,
                     "replay": 0}
@@ -117,19 +119,15 @@ def greedy_sign_sequence(pts, starting_point: int = 0, eps: float = 1e-6,
                          matrix_limit: int | None = None, device="cuda"):
     """Run the strongest-field greedy ordering; returns (acc, sign) tensors
     on `device`: sign is the +-1 flip state per point and acc the final
-    accumulated interaction (E . n_orig)."""
+    accumulated interaction (E . n_orig). The CPU loops run at any size; on
+    the card the kernel refuses more than 2^24 points
+    (propagate_cuda.MAX_POINTS)."""
     dev = resolve_device(device)
     pts = as_f32(pts, dev)[:, :6].contiguous()
     n = pts.shape[0]
     if n <= 1:
         return (torch.zeros(n, dtype=torch.float32, device=dev),
                 torch.ones(n, dtype=torch.float32, device=dev))
-    if n > MAX_POINTS:
-        raise ValueError(
-            f"per-point greedy at n={n} exceeds the single-device ceiling "
-            f"({MAX_POINTS}); use the representative-point pipeline "
-            "(api.orient_large) or the distributed greedy, neither of which "
-            "is ported yet")
     if not 0 <= starting_point < n:
         raise ValueError(f"starting point {starting_point} outside [0, {n})")
     limit = MATRIX_LIMIT if matrix_limit is None else matrix_limit

@@ -1,7 +1,8 @@
 """Wrapper of the greedy kernel `csrc/greedy.cu`, which replaces
 dipole_tpu/ops/propagate_pallas.py's three Pallas greedy kernels
 (_greedy_kernel, _greedy_streamed_kernel, _greedy_xl_kernel) with one
-cooperative CUDA kernel, in three update modes:
+cooperative CUDA kernel, in three update modes of one design (owner state
+in registers, one exchanged 8-byte word a step):
 
   greedy_rows     the matrix tier: reads row c of a precomputed (N, N) I;
   greedy_columns  the on-the-fly tier: computes column c from the cloud;
@@ -41,24 +42,26 @@ __all__ = ["greedy_rows", "greedy_columns", "xie_greedy", "replay",
            "one_block_max_n"]
 
 LAUNCHES = {"greedy_rows": 0, "greedy_columns": 0, "greedy_xie": 0, "replay": 0}
-_PART_CAPACITY = 1024   # candidate slots per parity; the grid never exceeds it
+_CAPACITY = 1024        # exchange words per parity; the grid never exceeds it
 MAX_POINTS = 2**24      # the greedy key's index field (csrc/greedy.cu)
+MAX_XIE_K = 256         # the xie mode's kNN mask width (csrc/greedy.cu)
+_MODES = {"columns": 0, "rows": 1, "xie": 2}   # csrc/greedy.cu's Mode
 _P_, _N_ = ctypes.c_void_p, ctypes.c_int
 _last = {"blocks": 0}
 
 
 def last_launch() -> dict:
     """The latest greedy or replay launch: blocks (for the replay, the
-    orders: one block each decides), and for the row and column greedy the
-    points a thread holds in registers (0: its state in global memory)."""
+    orders: one block each decides), and for the greedy the points a thread
+    holds in registers (0: its state in global memory)."""
     return dict(_last)
 
 
-def one_block_max_n(rows: bool) -> int:
-    """The most points the row (rows=True) or the column greedy runs on one
-    block."""
+def one_block_max_n(mode: str) -> int:
+    """The most points the greedy runs on one block in `mode` ("rows",
+    "columns" or "xie")."""
     _, fn = _build.entry("greedy", "dipole_greedy_one_block_max_n", [_N_])
-    return fn(int(rows))
+    return fn(_MODES[mode])
 
 
 def _check_points(n: int) -> None:
@@ -66,26 +69,28 @@ def _check_points(n: int) -> None:
         raise ValueError(f"{n} points: the greedy kernel takes at most 2^24")
 
 
-def _launch(data: torch.Tensor, n: int, start: int, eps: float, rows: bool,
-            reg_cap: int, blocks: int):
+def _launch(data: torch.Tensor, n: int, start: int, eps: float, mode: str,
+            reg_cap: int, blocks: int, knn: torch.Tensor | None = None):
     if not 0 <= start < n:
         raise ValueError(f"starting point {start} outside [0, {n})")
     lib, fn = _build.entry("greedy", "dipole_greedy",
-                           [_P_, _N_, _N_, ctypes.c_float, _N_, _P_, _P_, _P_,
-                            _N_, _N_, _N_, ctypes.POINTER(ctypes.c_int), _P_])
+                           [_P_, _N_, _N_, ctypes.c_float, _N_, _P_, _N_, _P_, _P_,
+                            _P_, _N_, _N_, _N_, ctypes.POINTER(ctypes.c_int), _P_])
     dev = data.device
     acc = torch.empty(n, dtype=torch.float32, device=dev)
     sign = torch.empty(n, dtype=torch.float32, device=dev)
     # one 8-byte candidate a block and step parity, zero on entry
-    slots = torch.zeros(2 * _PART_CAPACITY, dtype=torch.int64, device=dev)
+    slots = torch.zeros(2 * _CAPACITY, dtype=torch.int64, device=dev)
     info = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(data.data_ptr(), n, int(start), float(eps), int(rows),
-                 acc.data_ptr(), sign.data_ptr(), slots.data_ptr(), _PART_CAPACITY,
+        err = fn(data.data_ptr(), n, int(start), float(eps), _MODES[mode],
+                 0 if knn is None else knn.data_ptr(),
+                 0 if knn is None else knn.shape[1],
+                 acc.data_ptr(), sign.data_ptr(), slots.data_ptr(), _CAPACITY,
                  int(reg_cap), int(blocks), info, stream)
     _build.check(lib, err, "dipole_greedy")
-    LAUNCHES["greedy_rows" if rows else "greedy_columns"] += 1
+    LAUNCHES["greedy_xie" if mode == "xie" else f"greedy_{mode}"] += 1
     _last.clear()
     _last.update(blocks=info[0], per_thread=info[1])
     return acc, sign
@@ -100,7 +105,7 @@ def greedy_rows(I: torch.Tensor, start: int, *, _reg_cap: int = 0, _blocks: int 
     check_tensor(I, "I")
     if I.shape[0] != I.shape[1]:
         raise ValueError(f"I: expected a square matrix, got {tuple(I.shape)}")
-    return _launch(I, I.shape[0], start, 0.0, True, _reg_cap, _blocks)
+    return _launch(I, I.shape[0], start, 0.0, "rows", _reg_cap, _blocks)
 
 
 def greedy_columns(pts: torch.Tensor, start: int, eps: float, *, _reg_cap: int = 0,
@@ -111,7 +116,7 @@ def greedy_columns(pts: torch.Tensor, start: int, eps: float, *, _reg_cap: int =
     _check_points(pts.shape[0])
     check_tensor(pts, "pts", 6)
     planes = pts.t().contiguous()      # (6, N) channel-major for coalescing
-    return _launch(planes, pts.shape[0], start, eps, False, _reg_cap, _blocks)
+    return _launch(planes, pts.shape[0], start, eps, "columns", _reg_cap, _blocks)
 
 
 def _check_knn(knn_idx: torch.Tensor | None, n: int, device) -> None:
@@ -123,10 +128,13 @@ def _check_knn(knn_idx: torch.Tensor | None, n: int, device) -> None:
                          "matrix's device")
 
 
-def xie_greedy(IT: torch.Tensor, start: int, knn_idx: torch.Tensor | None = None):
+def xie_greedy(IT: torch.Tensor, start: int, knn_idx: torch.Tensor | None = None,
+               *, _blocks: int = 0):
     """(acc, sign) of the sequential xie loop over the transposed (N, N) xie
     matrix IT (row c is column c of I), from `start`; knn_idx (N, k): the
-    kNN mask in index form (row j: the targets kept for source j)."""
+    kNN mask in index form (row j: the targets kept for source j). Its
+    state stays in registers: the kernel refuses more than 8192 points an
+    SM. _blocks (0: the kernel's choice) is for tests and measurements."""
     check_tensor(IT, "IT")
     n = IT.shape[0]
     if IT.shape[1] != n:
@@ -135,31 +143,11 @@ def xie_greedy(IT: torch.Tensor, start: int, knn_idx: torch.Tensor | None = None
         raise ValueError(f"starting point {start} outside [0, {n})")
     _check_knn(knn_idx, n, IT.device)
     k = 0 if knn_idx is None else knn_idx.shape[1]
-    if k > 256:
-        raise ValueError(f"knn mask of {k} neighbours: the kernel takes at most 256")
-    lib, fn = _build.entry("greedy", "dipole_xie_greedy",
-                           [_P_, _N_, _N_, _P_, _N_, _P_, _P_, _P_, _P_, _P_, _P_,
-                            _N_, ctypes.POINTER(ctypes.c_int), _P_])
-    dev = IT.device
-    knn = None if knn_idx is None else knn_idx.to(torch.int32).contiguous()
-    acc = torch.empty(n, dtype=torch.float32, device=dev)
-    rate = torch.empty(n, dtype=torch.float32, device=dev)
-    sign = torch.empty(n, dtype=torch.float32, device=dev)
-    part_v = torch.empty(2 * _PART_CAPACITY, dtype=torch.float32, device=dev)
-    part_i = torch.empty(2 * _PART_CAPACITY, dtype=torch.int32, device=dev)
-    part_a = torch.empty(2 * _PART_CAPACITY, dtype=torch.float32, device=dev)
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(IT.data_ptr(), n, int(start), 0 if knn is None else knn.data_ptr(),
-                 k, acc.data_ptr(), rate.data_ptr(), sign.data_ptr(),
-                 part_v.data_ptr(), part_i.data_ptr(), part_a.data_ptr(),
-                 _PART_CAPACITY, ctypes.byref(blocks), stream)
-    _build.check(lib, err, "dipole_xie_greedy")
-    LAUNCHES["greedy_xie"] += 1
-    _last.clear()
-    _last.update(blocks=blocks.value)
-    return acc, sign
+    if k > MAX_XIE_K:
+        raise ValueError(f"knn mask of {k} neighbours: the kernel takes at most "
+                         f"{MAX_XIE_K}")
+    knn = None if not k else knn_idx.to(torch.int32).contiguous()
+    return _launch(IT, n, start, 0.0, "xie", 0, _blocks, knn)
 
 
 def reverse_knn(knn_idx: torch.Tensor, n: int):

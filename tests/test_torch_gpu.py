@@ -142,7 +142,8 @@ def test_greedy_kernel_ragged_sizes_last_start(cuda_device, n):
         one_block = propagate_cuda.last_launch()["blocks"] == 1
         want = plain()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        assert one_block == (n <= propagate_cuda.one_block_max_n(rows))
+        assert one_block == (n <= propagate_cuda.one_block_max_n(
+            "rows" if rows else "columns"))
 
 
 def test_wrappers_check_their_inputs(cuda_device):
@@ -161,7 +162,7 @@ def test_wrappers_check_their_inputs(cuda_device):
     with pytest.raises(ValueError, match="2\\^24"):
         propagate_cuda.greedy_columns(big, 0, 1e-6)
     with pytest.raises(RuntimeError, match="dipole_greedy: CUDA error"):
-        propagate_cuda._launch(big.t().contiguous(), 2**24 + 1, 0, 1e-6, False, 0, 0)
+        propagate_cuda._launch(big.t().contiguous(), 2**24 + 1, 0, 1e-6, "columns", 0, 0)
 
 
 def test_main_path_takes_kernels_only(cuda_device):
@@ -251,6 +252,58 @@ def test_knn_kernel_is_bit_equal(cuda_device, b, nd, ns, k, nsent):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# the PointCNN forward's five kNN calls (rows <- sources): k = 20 self
+# searches, k = 16 interpolations
+KNN_FORWARD = [(512, 512), (308, 308), (185, 185), (308, 185), (512, 308)]
+
+
+def _knn_ties(kind, nd, ns, b=3):
+    """Exact distance ties: points of an 8^3 integer lattice, or random
+    points whose second half duplicates the first; the queries are the
+    sources for a self search, else more rows drawn from the same points."""
+    r = np.random.default_rng(nd * ns)
+    if kind == "lattice":
+        lat = np.stack(np.meshgrid(*[np.arange(8.0)] * 3, indexing="ij"), -1)
+        lat = lat.reshape(-1, 3).astype(np.float32)
+        src = np.stack([lat[r.permutation(512)[:ns]] for _ in range(b)])
+        dst = src if nd == ns else np.stack([lat[r.permutation(512)[:nd]]
+                                             for _ in range(b)])
+    else:
+        src = r.normal(size=(b, ns, 3)).astype(np.float32)
+        src[:, ns - ns // 2:] = src[:, :ns // 2]
+        dst = src if nd == ns else np.concatenate(
+            [src, src[:, r.integers(0, ns, nd - ns)]], axis=1)
+    return np.ascontiguousarray(dst), np.ascontiguousarray(src)
+
+
+@pytest.mark.parametrize("k", [1, 16, 20, 32])
+@pytest.mark.parametrize("kind", ["lattice", "duplicated half"])
+@pytest.mark.parametrize("nd,ns", KNN_FORWARD)
+def test_knn_kernel_ties_at_forward_shapes(cuda_device, nd, ns, kind, k):
+    dst, src = (torch.as_tensor(a, device=cuda_device) for a in _knn_ties(kind, nd, ns))
+    want = neighbors.knn_with_dist_plain(dst, src, k)
+    got = neighbors_cuda.knn_with_dist(dst, src, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("b,nd,ns,k", [(2, 40, 8192, 20), (1, 257, 8192, 32),
+                                       (3, 185, 12, 20), (2, 300, 7, 32)])
+def test_knn_kernel_most_sources_and_k_above_sources(cuda_device, b, nd, ns, k):
+    """8192 sources (the kernel's most), and k > Ns: once a row is spent the
+    remaining slots are (index 0, +inf), as the scan gives."""
+    r = np.random.default_rng(ns + k)
+    src = r.normal(size=(b, ns, 3)).astype(np.float32)
+    src[:, ns // 2:ns // 2 + ns // 8] = src[:, :ns // 8]
+    dst = r.normal(size=(b, nd, 3)).astype(np.float32)
+    dst, src = torch.as_tensor(dst, device=cuda_device), torch.as_tensor(src, device=cuda_device)
+    want = neighbors.knn_with_dist_plain(dst, src, k)
+    got = neighbors_cuda.knn_with_dist(dst, src, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if k > ns:
+        assert bool((got[0][..., ns:] == 0).all())
+        assert bool(torch.isinf(got[1][..., ns:]).all())
+
+
 @pytest.mark.parametrize("b,n,m", [(1, 1, 1), (5, 129, 78), (3, 1024, 615), (2, 8192, 40)])
 def test_fps_kernel_is_bit_equal(cuda_device, b, n, m):
     r = np.random.default_rng(n + m)
@@ -330,19 +383,60 @@ def test_xie_matrix_kernel_is_bit_equal_in_both_layouts(cuda_device, n, C):
         assert torch.equal(IT, I.t())
 
 
-@pytest.mark.parametrize("n,k", [(2, 0), (3072, 8), (4000, 0), (4000, 8)])
-def test_xie_greedy_kernel_is_bit_equal(cuda_device, n, k):
+def _xie_check(pc, start, k, device, *, blocks=0, zeros=False):
+    """The xie greedy kernel against its plain version on cloud pc (with a
+    k-nearest mask if k), bit for bit; returns (acc, launch)."""
     from dipole_tpu_torch.ops.propagate import _knn_idx
 
-    pc = sphere(n, 17)
-    IT = fields.xie_interaction_matrix(torch.as_tensor(pc, device=cuda_device),
+    IT = fields.xie_interaction_matrix(torch.as_tensor(pc, device=device),
                                        transposed=True)
-    knn = torch.as_tensor(_knn_idx(pc, k), device=cuda_device) if k else None
-    got = propagate_cuda.xie_greedy(IT, n - 1, knn)
-    want = propagate.xie_greedy_plain(IT, n - 1, knn)
+    if zeros:
+        # most entries 0 and some -0: many acc values tie at 0
+        r = np.random.default_rng(len(pc))
+        IT[torch.as_tensor(r.random(IT.shape) < 0.9, device=device)] = 0.0
+        IT[torch.as_tensor(r.random(IT.shape) < 0.05, device=device)] = -0.0
+    knn = torch.as_tensor(_knn_idx(pc, k), device=device) if k else None
+    got = propagate_cuda.xie_greedy(IT, start, knn, _blocks=blocks)
+    launch = propagate_cuda.last_launch()
+    want = propagate.xie_greedy_plain(IT, start, knn)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    if n > 3072:
-        assert propagate_cuda.last_launch()["blocks"] > 1
+    return got[0], launch
+
+
+@pytest.mark.parametrize("n,k", [(2, 0), (3072, 8), (5000, 0), (5000, 8)])
+def test_xie_greedy_kernel_is_bit_equal(cuda_device, n, k):
+    _, launch = _xie_check(sphere(n, 17), n - 1, k, cuda_device)
+    assert (launch["blocks"] > 1) == (n > propagate_cuda.one_block_max_n("xie"))
+
+
+@pytest.mark.parametrize("k", [0, 8])
+@pytest.mark.parametrize("side", [-1, 0, 1])
+def test_xie_greedy_kernel_one_block_limit(cuda_device, side, k):
+    """Both sides of the xie mode's one-block limit: one block up to it, a
+    grid above."""
+    n = propagate_cuda.one_block_max_n("xie") + side
+    _, launch = _xie_check(sphere(n, 17), n - 1, k, cuda_device)
+    assert (launch["blocks"] == 1) == (side <= 0)
+
+
+@pytest.mark.parametrize("k", [0, 8])
+@pytest.mark.parametrize("n,blocks", [(2, 0), (3000, 0), (3000, 4), (20000, 0)])
+def test_xie_greedy_kernel_ties_across_blocks(cuda_device, n, blocks, k):
+    """Point i + n/2 duplicates point i, in another block once there are
+    several: their acc tie exactly until the lower index is picked."""
+    pc = sphere(n, 24)
+    pc[n // 2:] = pc[:n // 2]
+    acc, launch = _xie_check(pc, 1 if n > 2 else 0, k, cuda_device, blocks=blocks)
+    if blocks:
+        assert launch["blocks"] == blocks
+    if not k:          # (a kNN mask may keep one twin and not the other)
+        assert torch.equal(acc[:n // 2], acc[n // 2:])
+
+
+@pytest.mark.parametrize("k", [0, 8])
+@pytest.mark.parametrize("blocks", [1, 5])
+def test_xie_greedy_kernel_many_zero_entries(cuda_device, blocks, k):
+    _xie_check(sphere(4500, 27), 9, k, cuda_device, blocks=blocks, zeros=True)
 
 
 @pytest.mark.parametrize("T,masked,weighted", [(1, False, False), (3, True, False),
@@ -408,6 +502,12 @@ def test_xie_wrappers_check_their_inputs(cuda_device):
     with pytest.raises(ValueError, match="at most 256"):
         propagate_cuda.xie_greedy(I, 0, torch.zeros((64, 300), dtype=torch.int64,
                                                      device=cuda_device))
+    # one block holds at most 8192 points in registers
+    with pytest.raises(RuntimeError, match="dipole_greedy: CUDA error"):
+        propagate_cuda.xie_greedy(
+            fields.xie_interaction_matrix(torch.as_tensor(sphere(8193, 19),
+                                                          device=cuda_device),
+                                          transposed=True), 0, _blocks=1)
     with pytest.raises(ValueError, match="outside"):
         propagate_cuda.replay(I, torch.full((1, 64), 64, device=cuda_device))
     with pytest.raises(MemoryError, match="needs 4000.00 GB"):

@@ -101,9 +101,19 @@ def test_greedy_edge_cases(monkeypatch):
     acc, sign = propagate.greedy_sign_sequence(np.zeros((1, 6), np.float32),
                                                device="cpu")
     assert acc.tolist() == [0.0] and sign.tolist() == [1.0]
-    monkeypatch.setattr(propagate, "MAX_POINTS", 50)
-    with pytest.raises(ValueError, match="ceiling"):
-        propagate.greedy_sign_sequence(make_sphere(51, seed=28), device="cpu")
+    # the 2^24 ceiling is the card's alone: with it set to 0 the CPU loop
+    # still runs, as the JAX XLA scan does at any size, and gives the plain
+    # and the JAX result
+    monkeypatch.setattr(propagate_cuda, "MAX_POINTS", 0)
+    pc, _ = scramble_signs(make_sphere(51, seed=28), seed=29)
+    acc_t, sign_t = _port_greedy(pc, 0, None)
+    acc_p, sign_p = propagate.greedy_rows_plain(
+        fields.dipole_interaction_matrix(torch.as_tensor(pc)), 0)
+    np.testing.assert_array_equal(acc_t, acc_p.numpy())
+    np.testing.assert_array_equal(sign_t, sign_p.numpy())
+    acc_j, sign_j = _jax_greedy(pc, 0, None)
+    assert (sign_t == sign_j).all()
+    np.testing.assert_allclose(acc_t, acc_j, rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="starting point"):
         propagate.greedy_sign_sequence(make_sphere(20, seed=28), 20, device="cpu")
 

@@ -96,6 +96,29 @@ def test_xie_greedy_plain_matches_the_jax_scan():
     np.testing.assert_allclose(acc_t.numpy(), np.asarray(acc_j), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_xie_greedy_plain_matches_the_jax_scan_on_exact_ties(masked):
+    """Point i + 150 duplicates point i, so their acc tie exactly until the
+    lower index is picked (on the card such pairs lie in different blocks):
+    the plain loop takes the JAX scan's picks, unmasked and with a k = 8
+    kNN mask (index form, the same indices for both)."""
+    import jax.numpy as jnp
+
+    pc = _cloud(300, 51)
+    pc[150:] = pc[:150]
+    I = np.asarray(jfields.xie_interaction_matrix(pc))
+    knn = propagate._knn_idx(pc, 8).astype(np.int32) if masked else None
+    acc_j, sign_j = jprop._xie_greedy_scan(
+        jnp.asarray(I), jnp.int32(4), jnp.ones(300, bool),
+        None if knn is None else jnp.asarray(knn))
+    acc_t, sign_t = propagate.xie_greedy_plain(
+        torch.as_tensor(I.T.copy()), 4, None if knn is None else torch.as_tensor(knn))
+    np.testing.assert_array_equal(sign_t.numpy(), np.asarray(sign_j))
+    np.testing.assert_allclose(acc_t.numpy(), np.asarray(acc_j), rtol=1e-5, atol=1e-4)
+    if not masked:
+        np.testing.assert_array_equal(acc_t[:150].numpy(), acc_t[150:].numpy())
+
+
 def test_xie_propagation_points_plus_matches_jax():
     pc = _cloud(500, 50)
     want = jprop.xie_propagation_points_plus(pc, eps=1e-2, diffuse=True)
