@@ -7,8 +7,9 @@ kernel of those paths against its plain torch version.
 
 Phases, one JSON line each:
   1. device     name, count, nvidia-smi name and power limit; no CUDA -> fail
-  2. build      nvcc of the nine dipole_tpu_torch/csrc/*.cu for sm_90a;
-                seconds, ptxas registers and spills
+  2. build      nvcc of the nine dipole_tpu_torch/csrc/*.cu for sm_90a, and
+                of field_mma.cu's one-pass control; seconds, ptxas registers
+                and spills
   3. checks     each kernel against its plain version on the card:
                 potential 1000 lattice targets x 180k sources (+ a lattice
                 point coincident with a source: exactly 0 there), tolerance
@@ -25,13 +26,21 @@ Phases, one JSON line each:
                 and their edge cases: field (a target on a source, duplicate
                 sources; per component rtol 1e-4 + 1e-5 max|E|), group
                 (weights, duplicate points, an empty group, ids outside the
-                range; |dF| <= 1e-4 sum|I| per entry), knn (sentinel rows,
+                range, groups larger than a staged tile, 1500 one-point
+                groups, G = 1, coincident points, 2049 targets, groups
+                across the grid's chunks of 256 sources, the hand's 10000
+                points x 40; |dF| <= 1e-4 sum|I| per entry), knn (sentinel rows,
                 duplicates, cross shapes, k above the source count, 8192
                 sources; and at the forward's five shapes exact distance
                 ties, lattice points and a duplicated half, for k = 1, 16,
-                20 and 32, with 1, 2 and 4 lanes a query) and fps
+                20 and 32) and fps
                 (ragged valid counts, sentinel rows, duplicates, fewer valid
-                points than picks), knn and fps bit-equal; the xie slice's
+                points than picks; at 1, 31, 32, 33, 308, 512, 513, 1024 and
+                8192 points, each boundary of its block plan, with every
+                point twice and all points equal, m = 1 and m > n; a start
+                outside the patch makes the kernel trap, in a child
+                process), knn and fps
+                bit-equal; the xie slice's
                 kernels: the xie matrix in both layouts (I and I^T) at 4096
                 points (coincident pairs: n.n; a pair 1e-20 apart whose
                 entry overflows: 0), 3001, C = 2.5 and targets != sources,
@@ -101,14 +110,16 @@ Phases, one JSON line each:
                 against a grid from 1024 to 8192 points, both modes.
                 The patch kernels at the main path's largest calls: field
                 10000 sources x 180000 targets (transfer), group over the
-                lion's representatives, knn and fps on the lion's first
-                forward chunk, knn at each of the forward's five calls
+                lion's representatives and over the hand's 10000 points
+                in its patches (with its launches per orient_patches
+                call), knn and fps on the lion's first forward chunk,
+                knn at each of the forward's five calls
                 (self k = 20 at 512, 308 and 185 rows; the k = 16
                 interpolations 308 <- 185 and 512 <- 308) with its launches
-                per lion call, its plain version's and torch.topk's time,
-                the profiler's kernel time and the time with 1, 2 and 4
-                lanes a query, and the forward's second FPS
-                (m1 -> m2 rows); field and group held to their plain
+                per lion call, its plain version's and torch.topk's time
+                and the profiler's kernel time, and the forward's second FPS
+                (m1 -> m2 rows), both FPS also by the profiler's kernel
+                time; field and group held to their plain
                 versions, knn and fps bit-equal; kNN's library yardstick is
                 one torch.topk over the precomputed distances. One PointCNN
                 forward over that chunk is timed and traced (torch.profiler:
@@ -382,7 +393,7 @@ def phase_build() -> None:
     for name in _build.SOURCES:
         _build.library(name)
     ptxas = {name: [ln.strip() for ln in out.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or "entry function" in ln]
              for name, out in _build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": secs,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in paths.items()},
@@ -603,11 +614,16 @@ def _knn_tie_cases(r, dev, b=4):
             for label, d, s in out]
 
 
-def _fps_case(r, dev, b, n, m):
+def _fps_case(r, dev, b, n, m, kind="random"):
     pos = r.normal(size=(b, n, 3)).astype(np.float32)
-    nv = r.integers(max(1, m // 4), n + 1, b)
-    nv[0] = max(1, m // 3)                                   # fewer than m
-    pos[:, 20:30] = pos[:, :10]                              # duplicates
+    nv = r.integers(max(1, min(n, m // 4)), n + 1, b)
+    nv[0] = max(1, min(n, m // 3))                           # fewer than m
+    if n >= 30:
+        pos[:, 20:30] = pos[:, :10]                          # duplicates
+    if kind == "duplicates":                                 # every point twice
+        pos[:, n - n // 2:] = pos[:, :n // 2]
+    elif kind == "all equal":
+        pos[:] = pos[:, :1]
     valid = np.arange(n)[None, :] < nv[:, None]
     pos[~valid] = 1.0e6
     starts = (r.integers(0, 1 << 30, b) % nv).astype(np.int32)
@@ -618,7 +634,7 @@ def _fps_case(r, dev, b, n, m):
 def phase_checks_patch(dev) -> dict:
     """The patch-pipeline kernels against their plain versions at quick
     sizes and the edge cases of tests/test_pallas.py."""
-    from dipole_tpu_torch.ops import fields, neighbors
+    from dipole_tpu_torch.ops import fields, neighbors, neighbors_cuda
 
     errs = {}
     r = np.random.default_rng(SEED + 7)
@@ -650,6 +666,12 @@ def phase_checks_patch(dev) -> dict:
     require(bool((k[:, 7] == 0).all()), "dipole_group: empty group not 0")
     errs["dipole_group"] = _per_entry("dipole_group", k, p, _group_scale(wpts, gid, 50),
                                       1e-4, points=4000, groups=50)
+    for label, pts, gid, G in _group_cases(r, dev):
+        k = fields.point_group_interaction(pts, gid, G)
+        p = fields.point_group_interaction_plain(pts, gid, G, 1e-5)
+        errs["dipole_group"] = max(errs["dipole_group"], _per_entry(
+            "dipole_group", k, p, _group_scale(pts, gid, G), 1e-4, case=label,
+            points=len(pts), groups=G))
 
     # knn: self with sentinel rows, cross, nearly all sentinel, k > ns, the
     # most sources; then exact ties at the forward's five shapes
@@ -679,7 +701,61 @@ def phase_checks_patch(dev) -> dict:
             "fps", neighbors.fps_masked_batch(pos, valid, m, starts),
             neighbors.fps_masked_batch_plain(pos, valid, m, starts),
             shape=[b, n], m=m))
+    # each boundary of the block plan (points a lane, warps a patch), exact
+    # distance ties, m = 1 and m > n
+    for n in (1, 31, 32, 33, 308, 512, 513, 1024, 8192):
+        for kind in ("random", "duplicates", "all equal"):
+            for m in (1, min(n, 300) * 6 // 10 + 1, n + 3 if n <= 1024 else 200):
+                pos, valid, starts = _fps_case(r, dev, 4, n, m, kind)
+                errs["fps"] = max(errs["fps"], _equal(
+                    "fps", neighbors.fps_masked_batch(pos, valid, m, starts),
+                    neighbors.fps_masked_batch_plain(pos, valid, m, starts),
+                    shape=[4, n], m=m, case=kind, plan=neighbors_cuda.fps_plan(n)))
+    # a start outside the patch on the card makes the kernel trap; that
+    # spoils the CUDA context, so it is launched in a child
+    for bad in (308, -1):
+        code = ("import torch\n"
+                "from dipole_tpu_torch.ops import neighbors_cuda\n"
+                "pos = torch.zeros((3, 308, 3), device='cuda')\n"
+                "valid = torch.ones((3, 308), dtype=torch.bool, device='cuda')\n"
+                f"st = torch.tensor([0, {bad}, 5], dtype=torch.int32, device='cuda')\n"
+                "neighbors_cuda.fps_masked_batch(pos, valid, 185, st)\n"
+                "torch.cuda.synchronize()\n")
+        run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                             text=True, timeout=300)
+        require(run.returncode != 0 and "unspecified launch failure" in run.stderr,
+                f"fps: a start of {bad} outside the patch is not refused:\n"
+                f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
     return errs
+
+
+def _group_cases(r, dev):
+    """(label, pts, gid, G) edge cases of csrc/group.cu's design: groups
+    larger than a staged tile, many one-point groups, G = 1, empty groups
+    and ids outside [0, G), coincident points, targets not a multiple of a
+    thread's or a block's, groups across the grid's chunks of 256 sources,
+    the hand's shape (10000 points, ~40 groups)."""
+    out = []
+
+    def cloud(n, seed):
+        return torch.as_tensor(ellipsoid(n, seed), device=dev)
+
+    out.append(("larger than a tile", cloud(3000, SEED + 50), np.arange(3000) % 2, 2))
+    out.append(("one-point groups", cloud(1500, SEED + 51), r.permutation(1500), 1500))
+    out.append(("one group", cloud(5000, SEED + 52), np.zeros(5000, np.int64), 1))
+    gid = r.integers(1, 39, 3000)
+    gid[gid == 5] = 6
+    gid[:100], gid[100:200] = -3, 40
+    out.append(("empty and outside", cloud(3000, SEED + 53), gid, 40))
+    pts = cloud(3000, SEED + 54)
+    pts[2000:] = pts[:1000]
+    out.append(("coincident points", pts, r.integers(0, 40, 3000), 40))
+    out.append(("ragged targets", cloud(2049, SEED + 55), r.integers(0, 40, 2049), 40))
+    sizes = [300, 0, 212, 256, 1, 255, 257, 0, 519] + [100] * 12
+    gid = np.repeat(np.arange(len(sizes)), sizes)[r.permutation(3000)]
+    out.append(("chunk edges", cloud(3000, SEED + 56), gid, len(sizes)))
+    out.append(("hand shape", cloud(10000, SEED + 57), r.integers(0, 40, 10000), 40))
+    return [(label, pts, torch.as_tensor(gid, device=dev), G) for label, pts, gid, G in out]
 
 
 def _all_counts():
@@ -1005,14 +1081,17 @@ def phase_timing_patches(hand_out, hand180, lion, dev) -> dict:
     N, G = len(pts), len(reps)
     got = fields.point_group_interaction(pts, gid, G)
     plain_ms, want = timed(lambda: fields.point_group_interaction_plain(pts, gid, G, 1e-5))
+    scale = _group_scale(pts, gid, G)
     b = bound_ms(24 * N * 2 + 8 * N + 4 * N * G, OPS_GROUP * N * N)
     res["dipole_group"] = dict(
         shape=f"{N} points x {G} groups",
-        max_abs_err=_per_entry("dipole_group", got, want, _group_scale(pts, gid, G),
+        max_abs_err=_per_entry("dipole_group", got, want, scale,
                                1e-4, main_path_shape=True, points=N, groups=G),
         ms=cuda_ms(lambda: fields.point_group_interaction(pts, gid, G), 3, 0),
-        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
-    del got, want
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+        launches_per_lion_call=RUN_COUNTS["lion180k_orient_large"]["dipole_group"])
+    del got, want, scale
+    res["dipole_group"]["hand_shape"] = _group_hand_shape(hand_out, dev)
 
     # knn and fps: the first forward chunk of the lion's ensemble
     patches = [pc[r] for r in reps]
@@ -1048,11 +1127,44 @@ def phase_timing_patches(hand_out, hand180, lion, dev) -> dict:
         shape=f"{B} x {nb}, m={m1}",
         max_abs_err=_equal("fps", got, want, main_path_shape=True, shape=[B, nb]),
         ms=cuda_ms(lambda: neighbors.fps_masked_batch(pos1, valid, m1, starts), 20, 1),
+        profiler_ms=profiled_ms(lambda: neighbors.fps_masked_batch(pos1, valid, m1, starts),
+                                "fps_kernel", 20),
         plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], second_launch=fps2)
     emit({"phase": "timing", "patch_kernels": res})
     _profile_forward(batch, valid, pointcnn.key_starts(prng.prng_key(1), lens, pool, m1),
                      dev)
     return res
+
+
+def _group_hand_shape(hand_out, dev) -> dict:
+    """The group kernel at the hand run's shape: its 10000 points in the
+    patches of the hand demo's flags (all_patches of api.orient_patches),
+    held to the plain version, timed, with its launches per call."""
+    from dipole_tpu_torch.ops import fields
+    from dipole_tpu_torch.ops.patching import divide_pc
+    from dipole_tpu_torch.utils.io import Transform
+
+    pc = Transform.trans(hand_out)[0]
+    patches = divide_pc(pc[:, :3], HAND_FLAGS["number_parts"],
+                        min_patch=HAND_FLAGS["minimum_points_per_patch"])
+    seg = np.zeros(len(pc), np.int64)
+    for i, p in enumerate(patches):
+        seg[np.asarray(p)] = i
+    pts = torch.as_tensor(pc, device=dev)
+    gid = torch.as_tensor(seg, device=dev)
+    N, G = len(pts), len(patches)
+    got = fields.point_group_interaction(pts, gid, G)
+    plain_ms, want = timed(lambda: fields.point_group_interaction_plain(pts, gid, G, 1e-5))
+    b = bound_ms(24 * N * 2 + 8 * N + 4 * N * G, OPS_GROUP * N * N)
+    return dict(
+        shape=f"{N} points x {G} groups",
+        max_abs_err=_per_entry("dipole_group", got, want, _group_scale(pts, gid, G),
+                               1e-4, main_path_shape=True, points=N, groups=G),
+        ms=cuda_ms(lambda: fields.point_group_interaction(pts, gid, G), 20, 1),
+        profiler_ms=profiled_ms(lambda: fields.point_group_interaction(pts, gid, G),
+                                "group_kernel", 20),
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+        launches_per_hand_call=RUN_COUNTS["hand10k_orient_patches"]["dipole_group"])
 
 
 def _knn_forward_shapes(pos1, valid, nb, pool, m1, lens, dev):
@@ -1109,6 +1221,8 @@ def _knn_forward_shapes(pos1, valid, nb, pool, m1, lens, dev):
     b = bound_ms(12 * B * m1 + B * m1 + 4 * B + 4 * B * m2, OPS_FPS * B * (m2 - 1) * m1)
     fps2 = dict(shape=f"{B} x {m1}, m={m2}", max_abs_err=err, plain_ms=plain_ms,
                 ms=cuda_ms(lambda: neighbors.fps_masked_batch(pos2, valid2, m2, s2), 20, 1),
+                profiler_ms=profiled_ms(lambda: neighbors.fps_masked_batch(pos2, valid2, m2, s2),
+                                        "fps_kernel", 20),
                 bound_ms=b[0], bound_by=b[1],
                 launches_per_lion_call=RUN_COUNTS["lion180k_orient_large"]["fps"] / 2)
     return out, fps2
@@ -1116,21 +1230,25 @@ def _knn_forward_shapes(pos1, valid, nb, pool, m1, lens, dev):
 
 def profiled_ms(fn, name: str, reps: int) -> float:
     """Mean device time of the kernels whose name holds `name`, by
-    torch.profiler over reps calls of fn (after one warm-up call)."""
+    torch.profiler over reps calls of fn (after one warm-up call). A trace
+    that lost the kernels' records (seen once in a few hundred) is taken
+    again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and name in e.key]
-    calls = sum(e.count for e in events)
-    require(calls > 0, f"profiler: no device kernel named {name}")
-    return sum(e.self_device_time_total for e in events) / 1e3 / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and name in e.key]
+        calls = sum(e.count for e in events)
+        if calls:
+            return sum(e.self_device_time_total for e in events) / 1e3 / calls
+    raise CheckFailed(f"profiler: no device kernel named {name}")
 
 
 def _profile_forward(batch, valid, starts, dev) -> None:

@@ -11,16 +11,36 @@
 // forward (pointcnn.py:319-338); decisions as pointcnn._fps_masked
 // (:183-200) mapped over the batch.
 //
-// What bounds it on an H100: latency. m - 1 dependent steps, each a
-// block-wide argmax; the work, B (m - 1) N pairs of ~10 operations, is
-// small ((256, 512, m 308): 4e8 operations, 6 us at 67 TFLOP/s).
+// What bounds it on an H100: latency. m - 1 dependent steps, each an argmax
+// over the patch; the work, B (m - 1) N pairs of ~10 operations, is small
+// ((256, 512, m 308): 4e8 operations, 6 us at 67 TFLOP/s). 256 patches
+// fill fewer than the card's 528 warp schedulers, so a step costs what one
+// warp issues and waits for.
 //
-// Design: one block per patch, kThreads threads; thread t holds the
-// coordinates and running distance of points t + kThreads q in registers.
-// A step is a local argmax, a warp shuffle argmax and a shared-memory
-// argmax over the warps (largest value, then lowest index), and the
-// winner's coordinates are read by every thread from device memory (one
-// broadcast load, L1-resident).
+// Design: a block per patch of `warps` warps (the wrapper's plan:
+// ceil(n / 512), so one warp up to 512 points, 16 at the limit of 8192),
+// each lane holding P points in registers (P even, 2..16, the least that
+// covers n: no dead slots to sweep at the forward's 308 rows). Point j lies
+// with warp j / (32 P), slot (j mod 32 P) / 32, lane j mod 32. A step: each
+// lane updates its running distances to the last pick, one stage of the
+// formula at a time over all P slots (so the slots' chains interleave),
+// takes their maximum by a tree and the lowest slot that holds it by a
+// chain of selects that runs under the warp's reduction; the warp reduces an
+// order-preserving 32-bit key of the value with __reduce_max_sync and the
+// index among the lanes that hold it with __reduce_min_sync: the largest
+// value, then the lowest index. Several warps then exchange their (key,
+// index) through shared memory, double-buffered by step parity so one
+// __syncthreads a step suffices; one warp needs no barrier at all. Every
+// lane reads the pick's coordinates with one broadcast float4 load from the
+// patch's copy of its points in shared memory.
+//
+// A start outside [0, n) traps before any point is read: the launch fails
+// ("unspecified launch failure" at the stream's next synchronisation). The
+// wrapper does not read the starts back from the card, which would stall
+// the host twice a forward; the port also checks starts where it makes
+// them, on the host (models/pointcnn.py), for an early, readable error. A
+// device-side assert() in place of the trap made the kernel ~19% slower at
+// 512 points on an H100 (PERF.md).
 //
 // Arithmetic: -fmad=false, so the distances and hence every decision are
 // bit-equal to the plain torch version (ops/neighbors.py).
@@ -31,94 +51,133 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kPer = 16;                          // points per thread
-constexpr int kMaxPoints = kThreads * kPer;       // 8192
-constexpr int kWarpsPerBlock = kThreads / 32;
+constexpr int kMaxWarps = 16;
+constexpr int kMaxPer = 16;                              // points a lane
+constexpr int kMaxPoints = 32 * kMaxWarps * kMaxPer;     // 8192
 
-__device__ __forceinline__ void argmax_pair(float* v, int* j, float v2, int j2) {
-  if (v2 > *v || (v2 == *v && j2 < *j)) {
-    *v = v2;
-    *j = j2;
+// A float's order as an unsigned integer: a < b iff key(a) < key(b) (no
+// NaN; -0 comes before +0, and no distance here is -0).
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+template <int P>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+fps_kernel(const float* __restrict__ pos, const unsigned char* __restrict__ valid,
+           int n, int m, const int* __restrict__ starts, int* __restrict__ out) {
+  extern __shared__ float4 pts[];              // the patch's points
+  __shared__ unsigned red_key[2][kMaxWarps];
+  __shared__ unsigned red_j[2][kMaxWarps];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const float* Pb = pos + (size_t)b * n * 3;
+  const unsigned char* V = valid + (size_t)b * n;
+  int* O = out + (size_t)b * m;
+
+  int c = starts[b];
+  if (c < 0 || c >= n) __trap();             // the same for the whole block
+  const int base = wid * 32 * P + lane;        // slot q holds base + 32 q
+  float x[P], y[P], z[P], mind[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int j = base + 32 * q;
+    x[q] = y[q] = z[q] = 0.f;
+    if (j < n) {
+      x[q] = Pb[3 * j];
+      y[q] = Pb[3 * j + 1];
+      z[q] = Pb[3 * j + 2];
+      pts[j] = make_float4(x[q], y[q], z[q], 0.f);
+    }
+  }
+  if (warps > 1) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+  float4 w = pts[c];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int j = base + 32 * q;
+    const float dx = x[q] - w.x, dy = y[q] - w.y, dz = z[q] - w.z;
+    const float d = dx * dx + dy * dy + dz * dz;
+    mind[q] = j < n ? (V[j] ? d : -1.f) : -INFINITY;   // out of range: never the max
+  }
+  if (threadIdx.x == 0) O[0] = c;
+
+  int par = 0;
+  for (int i = 1; i < m; ++i) {
+    // the lane's largest running distance by a tree; its lowest slot by a
+    // chain of selects, which runs while the warp reduces the key
+    float t[P];
+#pragma unroll
+    for (int q = 0; q < P; ++q) t[q] = mind[q];
+#pragma unroll
+    for (int s = 1; s < P; s *= 2) {
+#pragma unroll
+      for (int q = 0; q + s < P; q += 2 * s) t[q] = fmaxf(t[q], t[q + s]);
+    }
+    int bq = P - 1;
+#pragma unroll
+    for (int q = P - 2; q >= 0; --q) bq = mind[q] == t[0] ? q : bq;
+    const unsigned key = order_key(t[0]);
+    unsigned kmax = __reduce_max_sync(0xffffffffu, key);
+    unsigned jmin = __reduce_min_sync(
+        0xffffffffu, key == kmax ? (unsigned)(base + 32 * bq) : UINT_MAX);
+    if (warps > 1) {
+      if (lane == 0) {
+        red_key[par][wid] = kmax;
+        red_j[par][wid] = jmin;
+      }
+      __syncthreads();
+      unsigned k2 = 0u, j2 = UINT_MAX;
+      if (lane < warps) {
+        k2 = red_key[par][lane];
+        j2 = red_j[par][lane];
+      }
+      kmax = __reduce_max_sync(0xffffffffu, k2);
+      jmin = __reduce_min_sync(0xffffffffu, k2 == kmax ? j2 : UINT_MAX);
+      par ^= 1;
+    }
+    c = static_cast<int>(jmin);
+    if (threadIdx.x == 0) O[i] = c;
+    w = pts[c];
+    // stage by stage over the slots: written slot by slot, ptxas reuses two
+    // registers for every slot and serialises the P chains of 8 operations
+    float dx[P], dy[P], dz[P];
+#pragma unroll
+    for (int q = 0; q < P; ++q) dx[q] = x[q] - w.x;
+#pragma unroll
+    for (int q = 0; q < P; ++q) dy[q] = y[q] - w.y;
+#pragma unroll
+    for (int q = 0; q < P; ++q) dz[q] = z[q] - w.z;
+#pragma unroll
+    for (int q = 0; q < P; ++q) dx[q] = dx[q] * dx[q];
+#pragma unroll
+    for (int q = 0; q < P; ++q) dy[q] = dy[q] * dy[q];
+#pragma unroll
+    for (int q = 0; q < P; ++q) dz[q] = dz[q] * dz[q];
+#pragma unroll
+    for (int q = 0; q < P; ++q) dx[q] = dx[q] + dy[q];
+#pragma unroll
+    for (int q = 0; q < P; ++q) mind[q] = fminf(mind[q], dx[q] + dz[q]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fps_kernel(const float* __restrict__ pos, const unsigned char* __restrict__ valid,
-           int n, int m, const int* __restrict__ starts, int* __restrict__ out) {
-  __shared__ float red_v[kWarpsPerBlock];
-  __shared__ int red_j[kWarpsPerBlock];
-  __shared__ int winner;
-  const int b = blockIdx.x;
-  const float* P = pos + (size_t)b * n * 3;
-  const unsigned char* V = valid + (size_t)b * n;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-
-  int c = starts[b];
-  float x[kPer], y[kPer], z[kPer], mind[kPer];
-  {
-    const float cx = P[3 * c], cy = P[3 * c + 1], cz = P[3 * c + 2];
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int j = threadIdx.x + q * kThreads;
-      x[q] = y[q] = z[q] = 0.f;
-      mind[q] = -INFINITY;  // out of range: never the maximum
-      if (j < n) {
-        x[q] = P[3 * j];
-        y[q] = P[3 * j + 1];
-        z[q] = P[3 * j + 2];
-        const float dx = x[q] - cx, dy = y[q] - cy, dz = z[q] - cz;
-        mind[q] = V[j] ? dx * dx + dy * dy + dz * dz : -1.f;
-      }
-    }
+template <int P>
+int launch(const float* pos, const unsigned char* valid, int batch, int n,
+           int m, const int* starts, int warps, int* out, cudaStream_t stream) {
+  const size_t smem = sizeof(float4) * n;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fps_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(float4) * kMaxPoints));
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (threadIdx.x == 0) out[(size_t)b * m] = c;
-
-  for (int i = 1; i < m; ++i) {
-    float bv = -INFINITY;
-    int bj = INT_MAX;
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const int j = threadIdx.x + q * kThreads;
-      if (j < n && mind[q] > bv) {  // ascending j: the lowest index on ties
-        bv = mind[q];
-        bj = j;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      argmax_pair(&bv, &bj, __shfl_xor_sync(0xffffffffu, bv, off),
-                  __shfl_xor_sync(0xffffffffu, bj, off));
-    }
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_j[warp] = bj;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < kWarpsPerBlock ? red_v[lane] : -INFINITY;
-      bj = lane < kWarpsPerBlock ? red_j[lane] : INT_MAX;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        argmax_pair(&bv, &bj, __shfl_xor_sync(0xffffffffu, bv, off),
-                    __shfl_xor_sync(0xffffffffu, bj, off));
-      }
-      if (lane == 0) {
-        winner = bj;
-        out[(size_t)b * m + i] = bj;
-      }
-    }
-    __syncthreads();
-    c = winner;
-    const float cx = P[3 * c], cy = P[3 * c + 1], cz = P[3 * c + 2];
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const float dx = x[q] - cx, dy = y[q] - cy, dz = z[q] - cz;
-      const float d = dx * dx + dy * dy + dz * dz;
-      if (d < mind[q]) mind[q] = d;
-    }
-  }
+  fps_kernel<P><<<batch, 32 * warps, smem, stream>>>(pos, valid, n, m, starts, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -128,14 +187,27 @@ extern "C" {
 int dipole_fps_max_points() { return kMaxPoints; }
 
 // pos (B, n, 3) float32, valid (B, n) bool (one byte each), starts (B,)
-// int32 in [0, n), all on the device; out (B, m) int32. 1 <= n <=
-// kMaxPoints. Returns cudaGetLastError().
+// int32, all on the device; out (B, m) int32. 1 <= n <= kMaxPoints; warps
+// (1..16) and per_lane (2..16, even) with 32 warps per_lane >= n: the
+// wrapper's plan. Returns cudaGetLastError().
 int dipole_fps(const float* pos, const unsigned char* valid, int batch, int n,
-               int m, const int* starts, int* out, cudaStream_t stream) {
-  if (n <= 0 || n > kMaxPoints) return static_cast<int>(cudaErrorInvalidValue);
+               int m, const int* starts, int warps, int per_lane, int* out,
+               cudaStream_t stream) {
+  if (n <= 0 || n > kMaxPoints || warps < 1 || warps > kMaxWarps ||
+      32 * warps * per_lane < n)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0 || m <= 0) return 0;
-  fps_kernel<<<batch, kThreads, 0, stream>>>(pos, valid, n, m, starts, out);
-  return static_cast<int>(cudaGetLastError());
+  switch (per_lane) {
+    case 2: return launch<2>(pos, valid, batch, n, m, starts, warps, out, stream);
+    case 4: return launch<4>(pos, valid, batch, n, m, starts, warps, out, stream);
+    case 6: return launch<6>(pos, valid, batch, n, m, starts, warps, out, stream);
+    case 8: return launch<8>(pos, valid, batch, n, m, starts, warps, out, stream);
+    case 10: return launch<10>(pos, valid, batch, n, m, starts, warps, out, stream);
+    case 12: return launch<12>(pos, valid, batch, n, m, starts, warps, out, stream);
+    case 14: return launch<14>(pos, valid, batch, n, m, starts, warps, out, stream);
+    case 16: return launch<16>(pos, valid, batch, n, m, starts, warps, out, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -342,6 +342,11 @@ def pointcnn_logits_batched(model: PointCNN, patches, key=None, bucket=None,
         starts = key_starts(prng.prng_key(0) if key is None else key,
                             [len(p) for p in patches], model.pool, m1)
     starts = np.asarray(starts, np.int32)
+    if (starts.shape != (len(patches), 2) or (starts < 0).any()
+            or (starts[:, 0] >= nb).any() or (starts[:, 1] >= m1).any()):
+        # checked here, on the host: the FPS kernel does not read them back
+        raise ValueError(f"starts: expected ({len(patches)}, 2) indices in "
+                         f"[0, {nb}) and [0, {m1}), the two stages' rows")
     if prepared is None:
         prepared = prepare_patch_batches(patches, nb, _forward_width(nb, model.pool), dev)
     elif sum(len(lens) for *_, lens in prepared) != len(patches) \

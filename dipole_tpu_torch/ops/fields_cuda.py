@@ -23,8 +23,8 @@ import torch
 from dipole_tpu_torch.ops import _build
 
 __all__ = ["potential", "dipole_imatrix", "xie_imatrix", "field_grad",
-           "point_group", "matrix_out", "field_mxu_exact",
-           "field_mxu_expansion", "LAUNCHES"]
+           "point_group", "group_chunks", "GROUP_CHUNK", "matrix_out",
+           "field_mxu_exact", "field_mxu_expansion", "LAUNCHES"]
 
 LAUNCHES = {"dipole_potential": 0, "dipole_imatrix": 0, "dipole_field": 0,
             "dipole_group": 0, "xie_imatrix": 0, "field_mxu_exact": 0,
@@ -152,6 +152,27 @@ def field_grad(sources: torch.Tensor, targets: torch.Tensor,
     return out
 
 
+GROUP_CHUNK = 256   # sources a chunk of csrc/group.cu's grid, cut at group starts
+
+
+def group_chunks(offsets: torch.Tensor, n_max: int) -> torch.Tensor:
+    """The chunks of the group kernel's grid: (n_chunks + 1,) int32 on the
+    offsets' device, chunk c summing groups [out[c], out[c + 1]), with
+    n_chunks = ceil(n_max / GROUP_CHUNK) for n_max >= offsets[-1] (the
+    point count: the source count itself would have to be read back from
+    the card). offsets (G + 1,) are the group-sorted sources' group offsets.
+    With K = GROUP_CHUNK, chunk c owns the groups that start in
+    [c K, (c + 1) K), the last chunk also those that start later (empty
+    ones at the end), so every group lies in exactly one chunk, whole, and
+    a block sums it in index order. At least one chunk."""
+    n_groups = offsets.shape[0] - 1
+    n_chunks = max(1, -(-n_max // GROUP_CHUNK))
+    starts = torch.arange(n_chunks, device=offsets.device,
+                          dtype=offsets.dtype) * GROUP_CHUNK
+    first = torch.searchsorted(offsets[:-1].contiguous(), starts)
+    return torch.cat([first, first.new_full((1,), n_groups)]).to(torch.int32)
+
+
 def point_group(pts: torch.Tensor, group_ids: torch.Tensor, num_groups: int,
                 eps: float) -> torch.Tensor:
     """F (N, G), F[i, g] = sum over j with group_ids[j] == g of I[i, j], from
@@ -166,21 +187,23 @@ def point_group(pts: torch.Tensor, group_ids: torch.Tensor, num_groups: int,
     if not 0 < num_groups < 2**31:
         raise ValueError(f"num_groups {num_groups} out of range")
     lib, fn = _build.entry("group", "dipole_group",
-                     [_P, _N, _P, _P, _N, ctypes.c_float, _P, _P])
-    gid = group_ids.to(torch.int64)
-    keep = (gid >= 0) & (gid < num_groups)
-    order = torch.argsort(torch.where(keep, gid, num_groups), stable=True)
-    n_src = int(keep.sum())
-    src = pts[order[:n_src]].contiguous()
-    counts = torch.bincount(gid[keep], minlength=num_groups)
-    offsets = torch.zeros(num_groups + 1, dtype=torch.int32, device=pts.device)
-    offsets[1:] = torch.cumsum(counts, 0).to(torch.int32)
+                           [_P, _N, _P, _P, _N, _P, _N, ctypes.c_float, _P, _P])
     n = pts.shape[0]
+    # sources sorted by group, stable (each group in index order), ids
+    # outside [0, G) last; nothing is read back from the card
+    gid = group_ids.to(torch.int64)
+    key = torch.where((gid >= 0) & (gid < num_groups), gid, num_groups)
+    key, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        key, torch.arange(num_groups + 1, device=pts.device)).to(torch.int32)
+    chunks = group_chunks(offsets, n)
+    src = pts[order]
     out_t = torch.empty((num_groups, n), dtype=torch.float32, device=pts.device)
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(pts.data_ptr(), n, src.data_ptr(), offsets.data_ptr(),
-                 num_groups, float(eps), out_t.data_ptr(), stream)
+                 num_groups, chunks.data_ptr(), chunks.shape[0] - 1,
+                 float(eps), out_t.data_ptr(), stream)
     _build.check(lib, err, "dipole_group")
     LAUNCHES["dipole_group"] += 1
     return out_t.t()

@@ -89,8 +89,14 @@ def fps_masked_batch(pos: torch.Tensor, valid: torch.Tensor, m: int,
                      starts: torch.Tensor) -> torch.Tensor:
     """Batched masked FPS: (B, m) int32 selections of each row's valid
     points from its start, invalid points never chosen while a valid one
-    remains. pos (B, N, 3) float32, valid (B, N) bool, starts (B,) int."""
+    remains. pos (B, N, 3) float32, valid (B, N) bool, starts (B,) int in
+    [0, N): checked here when they lie on the host."""
     pos = pos.contiguous()
+    starts = torch.as_tensor(starts)
+    if starts.device.type == "cpu" and not bool(
+            ((starts >= 0) & (starts < pos.shape[1])).all()):
+        # host starts are checked here; starts on the card are not read back
+        raise ValueError(f"starts outside [0, {pos.shape[1]})")
     if pos.device.type == "cpu":
         return fps_masked_batch_plain(pos, valid, m, starts)
     return neighbors_cuda.fps_masked_batch(

@@ -17,10 +17,12 @@ import torch
 from dipole_tpu_torch.ops import _build
 from dipole_tpu_torch.ops.fields_cuda import check_tensor
 
-__all__ = ["knn_with_dist", "fps_masked_batch", "LAUNCHES", "MAX_K"]
+__all__ = ["knn_with_dist", "fps_masked_batch", "fps_plan", "LAUNCHES", "MAX_K",
+           "FPS_MAX_PER_LANE"]
 
 LAUNCHES = {"knn": 0, "fps": 0}
 MAX_K = 32
+FPS_MAX_PER_LANE = 16   # points a lane of csrc/fps.cu (its kMaxPer)
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int
@@ -53,10 +55,24 @@ def knn_with_dist(dst: torch.Tensor, src: torch.Tensor, k: int):
     return idx, d2
 
 
+def fps_plan(n: int) -> tuple[int, int]:
+    """(warps, points a lane) of csrc/fps.cu's block for a patch of n
+    points: the fewest warps with at most FPS_MAX_PER_LANE points a lane,
+    then the fewest points a lane (even, at least 2) that cover n."""
+    warps = max(1, -(-n // (32 * FPS_MAX_PER_LANE)))
+    per = -(-n // (32 * warps))
+    return warps, max(2, per + per % 2)
+
+
 def fps_masked_batch(pos: torch.Tensor, valid: torch.Tensor, m: int,
                      starts: torch.Tensor) -> torch.Tensor:
     """(B, m) int32 farthest-point selections of each batch row over its
-    valid points, from starts (B,) — on the card, by csrc/fps.cu."""
+    valid points, from starts (B,) — on the card, by csrc/fps.cu. The
+    starts are not read back (that would stall the host): a start outside
+    [0, N) makes the kernel trap, and the stream's next synchronisation
+    raises "unspecified launch failure". Callers also check their starts
+    where they make them (ops/neighbors.fps_masked_batch on host starts,
+    models/pointcnn.py)."""
     check_tensor(pos, "pos", 3, ndim=3)
     b, n = pos.shape[0], pos.shape[1]
     if (valid.dtype != torch.bool or valid.shape != (b, n)
@@ -70,14 +86,14 @@ def fps_masked_batch(pos: torch.Tensor, valid: torch.Tensor, m: int,
     lib, max_pts = _build.entry("fps", "dipole_fps_max_points", [])
     if not 0 < n <= max_pts():
         raise ValueError(f"fps kernel takes 1..{max_pts()} points, got {n}")
-    if b and not bool(((starts >= 0) & (starts < n)).all()):
-        raise ValueError(f"starts outside [0, {n})")
-    _, fn = _build.entry("fps", "dipole_fps", [_P, _P, _N, _N, _N, _P, _P, _P])
+    _, fn = _build.entry("fps", "dipole_fps",
+                         [_P, _P, _N, _N, _N, _P, _N, _N, _P, _P])
+    warps, per = fps_plan(n)
     out = torch.empty((b, m), dtype=torch.int32, device=pos.device)
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(pos.data_ptr(), valid.data_ptr(), b, n, int(m),
-                 starts.data_ptr(), out.data_ptr(), stream)
+                 starts.data_ptr(), warps, per, out.data_ptr(), stream)
     _build.check(lib, err, "dipole_fps")
     LAUNCHES["fps"] += 1
     return out

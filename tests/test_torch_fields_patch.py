@@ -104,3 +104,61 @@ def test_reference_field_matches_jax(cols):
         np.testing.assert_array_equal(got, want)       # signs only
     else:
         np.testing.assert_allclose(got[:, 3:], want[:, 3:], atol=1e-5)
+
+
+def test_plain_group_matches_pallas_kernel_interpret():
+    """The plain version of csrc/group.cu against the TPU kernel itself
+    (fields_pallas._group_kernel in interpret mode): weights, coincident
+    pairs, an empty group and ids outside [0, 24); 1e-5 of sum |I|."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from dipole_tpu.ops.fields_pallas import point_group_interaction_pallas
+
+    pts = scramble_signs(make_sphere(600, seed=21), seed=22)[0]
+    pts[560:] = pts[:40]                         # coincident pairs
+    r = np.random.default_rng(23)
+    gid = r.integers(0, 24, len(pts)).astype(np.int32)
+    gid[gid == 9] = 10                           # group 9 has no source
+    gid[:12] = -1
+    gid[12:20] = 24
+    w = r.uniform(0.1, 1.0, len(pts)).astype(np.float32)
+    wp = pts.copy()
+    wp[:, 3:6] *= w[:, None]
+    # the weights are applied before the call: the Pallas wrapper's own
+    # source_weights path calls np.clip without bounds, which numpy 2 refuses
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(point_group_interaction_pallas(wp, gid, 24))
+    got = fields.point_group_interaction_plain(
+        _t(wp), torch.from_numpy(gid), 24, 1e-5).numpy()
+    assert got.shape == want.shape == (600, 24)
+    assert (got[:, 9] == 0).all() and (want[:, 9] == 0).all()
+    assert np.all(np.abs(got - want) <= 1e-5 * _group_scale(pts, gid, 24, w))
+
+
+@pytest.mark.parametrize("counts", [
+    [381] * 7,                                   # the lion's group size
+    [1] * 700,                                   # many one-point groups
+    [5000],                                      # G = 1, larger than a chunk
+    [0, 0, 5, 0],                                # empty groups, first and last
+    [0],                                         # no source at all
+    [256, 256, 0, 1, 255, 257, 0, 0],            # starts on chunk edges
+    [100, 700, 3, 0, 600, 1, 1, 2],              # ragged
+])
+def test_group_chunks_cover_every_group_once(counts):
+    """csrc/group.cu's grid plan (ops/fields_cuda.group_chunks): every group
+    in exactly one chunk, whole, in the chunk where its first source lies."""
+    from dipole_tpu_torch.ops.fields_cuda import GROUP_CHUNK, group_chunks
+
+    offsets = torch.zeros(len(counts) + 1, dtype=torch.int32)
+    offsets[1:] = torch.cumsum(torch.tensor(counts), 0)
+    n_src = int(offsets[-1])
+    n_max = n_src + 300                          # the point count: ids outside [0, G)
+    plan = group_chunks(offsets, n_max).tolist()
+    n_chunks = max(1, -(-n_max // GROUP_CHUNK))
+    assert len(plan) == n_chunks + 1
+    assert plan[0] == 0 and plan[-1] == len(counts)
+    assert all(a <= b for a, b in zip(plan, plan[1:]))
+    for c in range(n_chunks):
+        for g in range(plan[c], plan[c + 1]):
+            owner = min(int(offsets[g]) // GROUP_CHUNK, n_chunks - 1)
+            assert owner == c, (g, c)

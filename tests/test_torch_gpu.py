@@ -10,6 +10,9 @@ so it also runs on a GPU machine without JAX:
 Without a CUDA device every test skips from the fixture below, decided at
 run time, never at import.
 """
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +25,8 @@ from dipole_tpu_torch.ops import (estimate, fields, fields_cuda, neighbors,
 from dipole_tpu_torch.tools import mxu_field_experiment as mxu
 from dipole_tpu_torch.utils.io import gen_grid
 
-CKPT = str(Path(__file__).resolve().parent.parent / "pre_trained_tpu" / "dipole_0.pt")
+ROOT = Path(__file__).resolve().parent.parent
+CKPT = str(ROOT / "pre_trained_tpu" / "dipole_0.pt")
 
 pytestmark = pytest.mark.gpu
 
@@ -215,6 +219,26 @@ def test_field_kernel_matches_plain(cuda_device, n_src, n_tgt):
     assert bool(torch.isfinite(k).all())
 
 
+def _group_check(pts, gid, G, w=None):
+    """csrc/group.cu against its plain version, 1e-4 of sum |I| per entry
+    (the one-hot product sums in another order, the kernel takes
+    approximate roots); every entry finite."""
+    dev = pts.device
+    k = fields.point_group_interaction(pts, gid, G, source_weights=w)
+    wp = pts.clone()
+    if w is not None:
+        wp[:, 3:6] *= w[:, None]
+    p = fields.point_group_interaction_plain(wp, gid, G, 1e-5)
+    keep = (gid >= 0) & (gid < G)
+    onehot = torch.zeros((len(gid), G), device=dev)
+    onehot[torch.nonzero(keep)[:, 0], gid[keep]] = 1.0
+    scale = torch.cat([fields.dipole_interaction_matrix_plain(wp[b:b + 2048], wp, 1e-5).abs()
+                       @ onehot for b in range(0, len(wp), 2048)])
+    assert k.shape == (len(pts), G) and bool(torch.isfinite(k).all())
+    assert bool(((k - p).abs() <= 1e-4 * scale).all())
+    return k
+
+
 @pytest.mark.parametrize("n,G", [(1, 1), (129, 3), (3000, 40)])
 def test_group_kernel_matches_plain(cuda_device, n, G):
     pts = torch.as_tensor(sphere(n, 12), device=cuda_device)
@@ -233,6 +257,51 @@ def test_group_kernel_matches_plain(cuda_device, n, G):
     onehot[torch.nonzero(keep)[:, 0], gid[keep]] = 1.0
     # the one-hot product sums in another order: 1e-4 of sum |I| per entry
     assert bool(((k - p).abs() <= 1e-4 * (I @ onehot)).all())
+
+
+def _group_case(case, dev):
+    """(pts, gid, G) of a named edge case of the group kernel's design."""
+    r = np.random.default_rng(len(case))
+    n = {"hand shape": 10000, "one group": 5000, "one-point groups": 1500}.get(case, 3000)
+    pts = torch.as_tensor(sphere(n, 40 + len(case)), device=dev)
+    if case == "larger than a tile":             # 1500 sources a group, tiles of 256
+        gid = np.arange(n) % 2
+    elif case == "one-point groups":             # G = n: many groups a block
+        gid = r.permutation(n)
+    elif case == "one group":
+        gid = np.zeros(n, np.int64)
+    elif case == "empty and outside":            # groups 0, 5 and 39 empty
+        gid = r.integers(1, 39, n)
+        gid[gid == 5] = 6
+        gid[:100], gid[100:200] = -3, 40
+    elif case == "coincident points":            # a third duplicates, zero pairs
+        pts[2000:] = pts[:1000]
+        gid = r.integers(0, 40, n)
+    elif case == "ragged targets":               # n not a multiple of 4 or 512
+        pts = pts[:2049]
+        gid = r.integers(0, 40, 2049)
+    elif case == "chunk edges":                  # groups straddle the chunks of 256
+        sizes = [300, 0, 212, 256, 1, 255, 257, 0, 519] + [100] * 12
+        gid = np.repeat(np.arange(len(sizes)), sizes)[r.permutation(3000)]
+    else:                                        # hand shape: ~10k points, ~40 patches
+        gid = r.integers(0, 40, n)
+    G = {"one-point groups": n, "one group": 1}.get(case, int(gid.max()) + 1)
+    if case == "empty and outside":
+        G = 40
+    return pts, torch.as_tensor(gid, device=dev), G
+
+
+@pytest.mark.parametrize("case", ["larger than a tile", "one-point groups", "one group",
+                                  "empty and outside", "coincident points",
+                                  "ragged targets", "chunk edges", "hand shape"])
+def test_group_kernel_edge_cases(cuda_device, case):
+    pts, gid, G = _group_case(case, cuda_device)
+    r = np.random.default_rng(7)
+    w = torch.as_tensor(r.uniform(0.1, 1.0, len(pts)).astype(np.float32),
+                        device=cuda_device)
+    k = _group_check(pts, gid, G, w if case in ("coincident points", "chunk edges") else None)
+    if case == "empty and outside":
+        assert bool((k[:, [0, 5, 39]] == 0).all())
 
 
 @pytest.mark.parametrize("b,nd,ns,k,nsent", [(1, 1, 1, 1, 0), (3, 185, 308, 16, 10),
@@ -304,6 +373,24 @@ def test_knn_kernel_most_sources_and_k_above_sources(cuda_device, b, nd, ns, k):
         assert bool(torch.isinf(got[1][..., ns:]).all())
 
 
+def _fps_args(b, n, m, dev, kind):
+    r = np.random.default_rng(n + m)
+    pos = r.normal(size=(b, n, 3)).astype(np.float32)
+    if kind == "duplicates":                     # every point twice: exact ties
+        pos[:, n - n // 2:] = pos[:, :n // 2]
+    elif kind == "all equal":
+        pos[:] = pos[:, :1]
+    elif kind == "lattice":                      # small integer distances
+        pos = r.integers(0, 4, size=(b, n, 3)).astype(np.float32)
+    nv = r.integers(1, n + 1, b)
+    nv[0] = max(1, min(n, m // 2))               # fewer valid points than picks
+    valid = np.arange(n)[None, :] < nv[:, None]
+    pos[~valid] = 1.0e6
+    starts = (r.integers(0, 1 << 30, b) % nv).astype(np.int32)
+    return (torch.as_tensor(pos, device=dev), torch.as_tensor(valid, device=dev), m,
+            torch.as_tensor(starts, device=dev))
+
+
 @pytest.mark.parametrize("b,n,m", [(1, 1, 1), (5, 129, 78), (3, 1024, 615), (2, 8192, 40)])
 def test_fps_kernel_is_bit_equal(cuda_device, b, n, m):
     r = np.random.default_rng(n + m)
@@ -319,6 +406,17 @@ def test_fps_kernel_is_bit_equal(cuda_device, b, n, m):
                        neighbors.fps_masked_batch_plain(*args))
 
 
+@pytest.mark.parametrize("kind", ["random", "duplicates", "all equal", "lattice"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 308, 512, 513, 1024, 8192])
+def test_fps_kernel_warp_boundaries_and_ties(cuda_device, n, kind):
+    """Each boundary of the block plan (neighbors_cuda.fps_plan: points a
+    lane, warps a patch) with exact distance ties, m = 1 and m > n."""
+    for m in (1, min(n, 300) * 6 // 10 + 1, n + 3):
+        args = _fps_args(4, n, m, cuda_device, kind)
+        assert torch.equal(neighbors_cuda.fps_masked_batch(*args),
+                           neighbors.fps_masked_batch_plain(*args)), (n, m, kind)
+
+
 def test_patch_wrappers_check_their_inputs(cuda_device):
     pos = torch.zeros((2, 16, 3), device=cuda_device)
     with pytest.raises(ValueError, match="k must be"):
@@ -326,12 +424,37 @@ def test_patch_wrappers_check_their_inputs(cuda_device):
     with pytest.raises(ValueError, match="sources"):
         neighbors_cuda.knn_with_dist(pos, torch.zeros((2, 9000, 3), device=cuda_device), 4)
     valid = torch.ones((2, 16), dtype=torch.bool, device=cuda_device)
+    # host starts outside the patch are refused; the card's are not read
+    # back: the kernel traps (see below)
     with pytest.raises(ValueError, match="starts"):
+        neighbors.fps_masked_batch(pos, valid, 4, torch.tensor([0, 16], dtype=torch.int32))
+    with pytest.raises(ValueError, match="points"):
         neighbors_cuda.fps_masked_batch(
-            pos, valid, 4, torch.tensor([0, 16], dtype=torch.int32, device=cuda_device))
+            torch.zeros((1, 8193, 3), device=cuda_device),
+            torch.ones((1, 8193), dtype=torch.bool, device=cuda_device), 4,
+            torch.zeros(1, dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError, match="group_ids"):
         fields_cuda.point_group(torch.zeros((4, 6), device=cuda_device),
                                 torch.zeros(3, dtype=torch.int64, device=cuda_device), 2, 1e-5)
+
+
+@pytest.mark.parametrize("bad", [16, -1])
+def test_fps_kernel_refuses_a_start_outside_the_patch(cuda_device, bad):
+    """The FPS wrapper does not read the starts back; the kernel traps on a
+    start outside [0, n), and the stream's next synchronisation raises. A
+    trap spoils the process's CUDA context, so the launch runs in a child
+    process."""
+    code = ("import torch\n"
+            "from dipole_tpu_torch.ops import neighbors_cuda\n"
+            "pos = torch.zeros((2, 16, 3), device='cuda')\n"
+            "valid = torch.ones((2, 16), dtype=torch.bool, device='cuda')\n"
+            f"st = torch.tensor([0, {bad}], dtype=torch.int32, device='cuda')\n"
+            "neighbors_cuda.fps_masked_batch(pos, valid, 4, st)\n"
+            "torch.cuda.synchronize()\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode != 0 and "unspecified launch failure" in run.stderr, \
+        run.stdout[-2000:] + run.stderr[-2000:]
 
 
 def test_patch_pipelines_take_kernels_only(cuda_device):

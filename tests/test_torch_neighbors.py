@@ -103,3 +103,61 @@ def test_plain_fps_matches_vmapped_fps_masked(B, N, m):
     np.testing.assert_array_equal(got, want)
     for i in range(B):                       # never an invalid point
         assert (got[i] < nv[i]).all()
+
+
+@pytest.mark.parametrize("N,m", [(512, 308), (308, 185)])
+def test_plain_fps_matches_pallas_kernel_interpret(N, m):
+    """The plain version of csrc/fps.cu against the TPU kernel itself
+    (neighbors_pallas._fps_batch_kernel in interpret mode) at the forward's
+    two stage shapes: ragged valid counts, fewer valid points than picks,
+    duplicates. Exact (see tests/test_pallas.py's FPS test)."""
+    from dipole_tpu.ops.neighbors_pallas import fps_masked_batch_pallas
+
+    B = 3
+    r = np.random.default_rng(N + m)
+    pos = r.normal(size=(B, N, 3)).astype(np.float32)
+    nv = r.integers(max(1, m // 4), N + 1, B)
+    nv[0] = max(1, m // 3)
+    pos[:, 10:14] = pos[:, :4]
+    for i in range(B):
+        pos[i, nv[i]:] = 1.0e6
+    valid = np.arange(N)[None, :] < nv[:, None]
+    starts = (r.integers(0, 1 << 30, B) % nv).astype(np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(fps_masked_batch_pallas(pos, valid, m, starts))
+    got = neighbors.fps_masked_batch_plain(torch.from_numpy(pos), torch.from_numpy(valid),
+                                           m, torch.from_numpy(starts)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 65, 185, 308, 512, 513, 615,
+                               1024, 1025, 4096, 8191, 8192])
+def test_fps_plan_covers_the_patch(n):
+    """csrc/fps.cu's block plan: one warp up to 512 points, then the fewest
+    warps of at most 16 points a lane; an even count a lane, the fewest
+    that covers n; every warp holds a point (none sweeps only empty slots)."""
+    from dipole_tpu_torch.ops.neighbors_cuda import FPS_MAX_PER_LANE, fps_plan
+
+    warps, per = fps_plan(n)
+    assert warps == max(1, -(-n // 512)) and 1 <= warps <= 16
+    assert per % 2 == 0 and 2 <= per <= FPS_MAX_PER_LANE
+    assert 32 * warps * per >= n and 32 * warps * (per - 2) < max(n, 64)
+    assert 32 * per * (warps - 1) < n
+
+
+def test_fps_refuses_host_starts_outside_the_patch():
+    """Starts are checked on the host, where the port makes them: the card's
+    wrapper does not read them back."""
+    from dipole_tpu_torch.models import pointcnn
+
+    pos = torch.zeros((2, 16, 3))
+    valid = torch.ones((2, 16), dtype=torch.bool)
+    for bad in ([0, 16], [-1, 3]):
+        with pytest.raises(ValueError, match="starts"):
+            neighbors.fps_masked_batch(pos, valid, 4, torch.tensor(bad, dtype=torch.int32))
+    model = pointcnn.PointCNN(0.6)
+    patch = np.zeros((100, 6), np.float32)
+    m1 = pointcnn._pad_sizes(128, 0.6)[0]
+    for bad in ([[128, 0]], [[0, m1]], [[-1, 0]], [[0, 0], [0, 0]]):
+        with pytest.raises(ValueError, match="starts"):
+            pointcnn.pointcnn_logits_batched(model, [patch], starts=np.array(bad))
