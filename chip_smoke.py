@@ -43,8 +43,8 @@ Phases, one JSON line each:
                 bit-equal; the xie slice's
                 kernels: the xie matrix in both layouts (I and I^T) at 4096
                 points (coincident pairs: n.n; a pair 1e-20 apart whose
-                entry overflows: 0), 3001, C = 2.5 and targets != sources,
-                bit-equal; the xie greedy at 2000, 10000 and 30000 points, a
+                entry overflows: 0), 3001, 129 (two tiles and a point),
+                C = 2.5 and targets != sources, bit-equal; the xie greedy at 2000, 10000 and 30000 points, a
                 cloud whose second half duplicates its first (exact ties,
                 on one block and across 6), both sides of its one-block
                 limit, one block of 8 points a thread and a matrix with most
@@ -109,7 +109,11 @@ Phases, one JSON line each:
                 one an SM (the exchange against the block count); one block
                 against a grid from 1024 to 8192 points, both modes.
                 The patch kernels at the main path's largest calls: field
-                10000 sources x 180000 targets (transfer), group over the
+                10000 sources x 180000 targets (transfer), the lion's
+                138869 representatives x its 41131 other points
+                (orient_large's rest-point re-vote) and one edge of the
+                graph_dipole run (505 x 499), each with its launches per
+                call and the profiler's kernel time, group over the
                 lion's representatives and over the hand's 10000 points
                 in its patches (with its launches per orient_patches
                 call), knn and fps on the lion's first forward chunk,
@@ -125,7 +129,8 @@ Phases, one JSON line each:
                 forward over that chunk is timed and traced (torch.profiler:
                 device busy share, the kernels that take the most time).
                 The xie slice's kernels at its shapes: the xie matrix at
-                30000 (I) and 10000 (I^T), the xie greedy at 10000, masked
+                30000 (I) and 10000 (I^T), and at 30000 in its general
+                mode (targets given, no mirror), the xie greedy at 10000, masked
                 (k = 8) at 10000 and at 30000, and one block against a grid
                 from 2048 to 8192 points, the
                 replay of the tree_xie run's 3 BFS orders at 30000 and of 9
@@ -1055,26 +1060,28 @@ def phase_timing_patches(hand_out, hand180, lion, dev) -> dict:
 
     res = {}
     # field: the transfer, 10000 oriented sources at 180000 targets
-    src = torch.as_tensor(hand_out, device=dev)
-    tgt = torch.as_tensor(hand180[:, :3].copy(), device=dev)
-    S, T = len(src), len(tgt)
-    got = fields.field_grad(src, tgt)
-    plain_ms, want = timed(lambda: fields.field_grad_plain(src, tgt, 1e-5))
-    b = bound_ms(24 * S + 12 * T + 12 * T, OPS_FIELD * S * T)
-    res["dipole_field"] = dict(
-        shape=f"{S} sources x {T} targets",
-        max_abs_err=_per_entry("dipole_field", got, want, _field_scale(want), 1e-4,
-                               main_path_shape=True, sources=S, targets=T),
-        ms=cuda_ms(lambda: fields.field_grad(src, tgt), 10, 1),
-        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
-    del want
+    res["dipole_field"] = _field_shape(
+        "transfer", torch.as_tensor(hand_out, device=dev),
+        torch.as_tensor(hand180[:, :3].copy(), device=dev),
+        "hand_transfer_10k_to_180k", 10)
 
-    # group: the lion's representatives (orient_large's patches and picks)
+    # the lion's patches and representatives (orient_large's picks)
     pc = Transform.trans(lion)[0]
     patches = divide_pc(pc[:, :3], LION_FLAGS["number_parts"],
                         min_patch=LION_FLAGS["minimum_points_per_patch"])
     rng = np.random.default_rng(1)
-    reps = [p[rng.permutation(len(p))[:MAX_PATCH_SIZE]] for p in patches]
+    perms = [p[rng.permutation(len(p))] for p in patches]
+    reps = [p[:MAX_PATCH_SIZE] for p in perms]
+    rest = np.concatenate([p[MAX_PATCH_SIZE:] for p in perms])
+    # field: orient_large's rest-point re-vote, the representatives as
+    # sources at every other point (ops/propagate.py:300-308)
+    res["dipole_field"]["other_shapes"] = {
+        "lion_rest_revote": _field_shape(
+            "lion_rest_revote", torch.as_tensor(pc[np.concatenate(reps)], device=dev),
+            torch.as_tensor(pc[rest, :3], device=dev), "lion180k_orient_large", 5),
+        "graph_dipole_edge": _field_edge_shape(dev)}
+
+    # group: the lion's representatives
     pts = torch.as_tensor(pc[np.concatenate(reps)], device=dev)
     gid = torch.as_tensor(np.concatenate([np.full(len(r), i) for i, r in enumerate(reps)]),
                           device=dev)
@@ -1134,6 +1141,43 @@ def phase_timing_patches(hand_out, hand180, lion, dev) -> dict:
     _profile_forward(batch, valid, pointcnn.key_starts(prng.prng_key(1), lens, pool, m1),
                      dev)
     return res
+
+
+def _field_shape(label, src, tgt, run, reps) -> dict:
+    """The field kernel at one main-path shape: held to its plain version,
+    timed by events and by the profiler's kernel time, with its bound and
+    its launches per call of main-path run `run`."""
+    from dipole_tpu_torch.ops import fields
+
+    S, T = len(src), len(tgt)
+    got = fields.field_grad(src, tgt)
+    plain_ms, want = timed(lambda: fields.field_grad_plain(src, tgt, 1e-5))
+    b = bound_ms(24 * S + 12 * T + 12 * T, OPS_FIELD * S * T)
+    return dict(
+        shape=f"{S} sources x {T} targets",
+        max_abs_err=_per_entry("dipole_field", got, want, _field_scale(want), 1e-4,
+                               main_path_shape=label, sources=S, targets=T),
+        ms=cuda_ms(lambda: fields.field_grad(src, tgt), reps, 1),
+        profiler_ms=profiled_ms(lambda: fields.field_grad(src, tgt),
+                                ("field_partial", "field_finish"), reps),
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+        launches_per_call=RUN_COUNTS[run]["dipole_field"])
+
+
+def _field_edge_shape(dev) -> dict:
+    """The field at one edge of graph_dipole's run on the 10k ellipsoid
+    (grid, 10 parts): the first pair of grid-adjacent patches, as
+    pipelines/graph_dipole.divide_pc_to_graph takes them."""
+    from dipole_tpu_torch.ops.patching import divide_pc_with_ijk
+    from dipole_tpu_torch.utils.io import Transform
+
+    pc = Transform.trans(ellipsoid(10000, SEED))[0]
+    patches, ijk = divide_pc_with_ijk(pc, 10, (-1.5, 1.5), 0)
+    i, j = next((i, j) for i in range(len(patches)) for j in range(i + 1, len(patches))
+                if any(np.abs(a - b).sum() == 1 for a in ijk[i] for b in ijk[j]))
+    return _field_shape("graph_dipole_edge", torch.as_tensor(pc[patches[i]], device=dev),
+                        torch.as_tensor(pc[patches[j], :3], device=dev),
+                        "graph_dipole10k_grid_cli", 50)
 
 
 def _group_hand_shape(hand_out, dev) -> dict:
@@ -1228,11 +1272,12 @@ def _knn_forward_shapes(pos1, valid, nb, pool, m1, lens, dev):
     return out, fps2
 
 
-def profiled_ms(fn, name: str, reps: int) -> float:
-    """Mean device time of the kernels whose name holds `name`, by
-    torch.profiler over reps calls of fn (after one warm-up call). A trace
-    that lost the kernels' records (seen once in a few hundred) is taken
-    again, up to three times."""
+def profiled_ms(fn, name, reps: int) -> float:
+    """Mean device time of the kernels whose name holds `name` (or, for a
+    tuple of names, the sum of each name's mean), by torch.profiler over
+    reps calls of fn (after one warm-up call). A trace that lost the
+    kernels' records (seen once in a few hundred) is taken again, up to
+    three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1243,11 +1288,15 @@ def profiled_ms(fn, name: str, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and name in e.key]
-        calls = sum(e.count for e in events)
-        if calls:
-            return sum(e.self_device_time_total for e in events) / 1e3 / calls
+        ms = []
+        for part in (name,) if isinstance(name, str) else name:
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and part in e.key]
+            calls = sum(e.count for e in events)
+            if calls:
+                ms.append(sum(e.self_device_time_total for e in events) / 1e3 / calls)
+        if ms:
+            return sum(ms)
     raise CheckFailed(f"profiler: no device kernel named {name}")
 
 
@@ -1378,6 +1427,7 @@ def phase_checks_xie(gt10: np.ndarray, dev) -> dict:
     pts[1001, :3] = torch.tensor([1e-20, 0.0, 0.0])
     tgt = torch.as_tensor(ellipsoid(777, SEED + 31), device=dev) * 1.3
     cases = [("4096", pts, None, 3.0), ("3001", pts[:3001].contiguous(), None, 3.0),
+             ("129", pts[:129].contiguous(), None, 3.0),
              ("C=2.5", pts[:2500].contiguous(), None, 2.5),
              ("targets", pts[:3001].contiguous(), tgt, 3.0)]
     for label, src, targets, C in cases:
@@ -1591,7 +1641,16 @@ def phase_timing_xie(gt10, gt30, dev) -> dict:
             ms=cuda_ms(lambda: fields.xie_interaction_matrix(p, transposed=transposed),
                        5, 1))
         del I
-    res["xie_imatrix"] = {**sizes["30k_I"], "other_shapes": {"10k_IT": sizes["10k_IT"]}}
+    # the general mode (targets given) at the 30k shape: no mirror
+    I = fields.xie_interaction_matrix(p30)
+    require(torch.equal(fields.xie_interaction_matrix(p30, targets=p30), I),
+            "xie_imatrix: the general mode differs from the symmetric one at 30k")
+    del I
+    sizes["30k_I_general"] = dict(
+        shape=f"{n30} x {n30}, targets given",
+        ms=cuda_ms(lambda: fields.xie_interaction_matrix(p30, targets=p30), 5, 1))
+    res["xie_imatrix"] = {**sizes["30k_I"], "other_shapes": {
+        "10k_IT": sizes["10k_IT"], "30k_I_general": sizes["30k_I_general"]}}
 
     res["greedy_xie"] = time_xie_greedy(
         (("10k", p10, None), ("10k_masked_k8", p10, propagate._knn_idx(pc10, 8)),

@@ -5,88 +5,147 @@
 //
 // Replaces: dipole_tpu/ops/fields_pallas.py:_field_kernel + _pair_terms
 // (via field_grad_pallas), reached from fields.field_grad: the rest-point
-// pass of orient_large (dipole_tpu/ops/propagate.py:479-498) and
-// reference_field (orientation transfer, fields.py:262-280).
+// re-vote of orient_large (ops/propagate.py:300-308: the lion's 138869
+// representatives at its 41131 other points), orientation transfer
+// (reference_field: 10000 sources at 180000 targets) and graph_dipole's
+// edge weights (~500 x ~500, 44 calls a run).
 //
-// What bounds it on an H100: operations. T targets x S sources pairs of
-// ~30 flops (a sqrt and a divide each) against 24 bytes per source and 24
-// per target: at 180k x 10k, 5.4e10 flops (0.8 ms at 67 TFLOP/s fp32).
+// What bounds it on an H100: instruction issue. T targets x S sources
+// pairs of 33 operations each as counted for the bound (1.8e9 pairs at the
+// transfer: 0.89 ms at 67 TFLOP/s fp32; 5.7e9 at the lion: 2.8 ms) against
+// 24 bytes a source and 24 a target. The inner loop is 210 SASS
+// instructions for 2 sources x 4 targets, 26 a pair (one target a thread
+// with IEEE roots took ~69), so the design cuts instructions: ~1 ps a
+// pair, half the bound.
 //
-// Design: one thread per target, sources staged in shared memory kTile at
-// a time in a fixed order, as in potential.cu. The source axis is split
-// into chunks of kChunk along grid.y so that a few thousand targets still
-// fill the 132 SMs; each block writes its chunk's partial field and a
-// second kernel adds the chunks in order, then scrubs: no atomics, the
-// same total on every run. A partial is -(term_R - term_p) of its chunk,
-// the structure of the XLA scan (one such tile sum per source block,
-// fields.py:107-121, 136-149), and only the final total is scrubbed.
+// Design, as csrc/group.cu: a block of kThreads threads holds kPerThread
+// targets a thread in registers and stages its chunk's sources in shared
+// memory kTile at a time, one float4 (x, y, z, px) and one float2 (py, pz)
+// a source, read by broadcast. The source axis is cut into chunks along
+// grid.y, planned on the host (field_plan) so that each shape fills the
+// 132 SMs: chunks of at most kMaxChunk sources (the transfer: 352 target
+// blocks x 5 chunks; the lion: 81 x 68), and, where the target blocks are
+// few, as many chunks of at least kMinChunk sources as bring the grid to
+// kFillBlocks (a graph_dipole edge of 505 x 499: 16 chunks of 32). Each
+// block writes its chunk's partial field and field_finish adds the chunks
+// in order, then scrubs: no atomics, the same total on every run. A single
+// chunk writes the scrubbed total itself, in one launch. Measured against
+// this (PERF.md): 8 targets a thread tie at the transfer and lose 6% at the
+// lion and 58% at the edge; chunks of at least 128 at the edge take 2.9x
+// the kernel time.
 //
-// Arithmetic: the XLA tile formula of dipole_tpu/ops/fields.py:107-121 with
-// one reciprocal per pair (t = 1/(safe_r2 denom), a = 3 c t, b = safe_r2 t),
-// term_R and term_p summed separately; -fmad=false, sqrtf and / IEEE. The
-// sums run in another order than the plain torch version's: rtol 1e-4.
+// Arithmetic: the TPU kernel's one-reciprocal formula (fields_pallas.py
+// _pair_terms): t = 1 / (r2 denom), a = 3 c t, b = r2 t, denom = r r2 + eps,
+// E += b p - a R in one sum a component, with explicit multiply-adds
+// (-fmad=false stays the build-wide flag) and the hardware's approximate
+// square root and reciprocal (sqrt.approx.ftz, rcp.approx.ftz: relative
+// errors below 2^-22 each). A coincident pair (r2 = 0) takes t = 0 and so
+// contributes nothing. The sums run in another order than the plain torch
+// version's (ops/fields.py, 1024-source tile sums): each component is held
+// to it within 1e-4 |E| + 1e-5 max|E| (tests/test_torch_gpu.py,
+// chip_smoke.py). At the lion's shape the worst component is at 0.167 of
+// that tolerance, with approximate or with IEEE-rounded roots alike (the
+// one-target-a-thread kernel: 0.156): the error is the order of the sums.
+// IEEE-rounded roots (__fsqrt_rn, __frcp_rn) take 66-69% more time.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // targets per block
-constexpr int kTile = 128;     // sources staged in shared memory at a time
-constexpr int kChunk = 2048;   // sources per block along grid.y
+constexpr int kThreads = 128;
+constexpr int kPerThread = 4;                    // targets a thread
+constexpr int kTargets = kThreads * kPerThread;  // targets a block
+constexpr int kTile = 256;                       // sources staged at a time
+constexpr int kMaxChunk = 2048;                  // sources a block, at most
+constexpr int kMinChunk = 32;                    // and at least, when cut finer
+constexpr int kFillBlocks = 8 * 132;             // blocks that fill the card
 
+__device__ __forceinline__ float root(float x) {
+  float y;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float recip(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// e += the field of source (a.xyz, moment a.w b.x b.y) at target t.
+__device__ __forceinline__ void add_pair(float4 a, float2 b, const float* t,
+                                         float eps, float* e) {
+  const float Rx = a.x - t[0];
+  const float Ry = a.y - t[1];
+  const float Rz = a.z - t[2];
+  const float r2 = __fmaf_rn(Rz, Rz, __fmaf_rn(Ry, Ry, Rx * Rx));
+  const float denom = __fmaf_rn(root(r2), r2, eps);
+  const float c = __fmaf_rn(b.y, Rz, __fmaf_rn(b.x, Ry, a.w * Rx));
+  const float inv = r2 == 0.f ? 0.f : recip(r2 * denom);
+  const float ca = 3.f * c * inv;
+  const float cb = r2 * inv;
+  e[0] = __fmaf_rn(cb, a.w, __fmaf_rn(-ca, Rx, e[0]));
+  e[1] = __fmaf_rn(cb, b.x, __fmaf_rn(-ca, Ry, e[1]));
+  e[2] = __fmaf_rn(cb, b.y, __fmaf_rn(-ca, Rz, e[2]));
+}
+
+__device__ __forceinline__ float scrub(float x) {
+  return isfinite(x) ? x : 0.f;
+}
+
+// Block (x, y) sums sources [y chunk, (y + 1) chunk) at targets
+// [x kTargets, (x + 1) kTargets), thread q-th target x kTargets + q
+// kThreads + threadIdx.x. With one chunk it writes the scrubbed field to
+// out, else its partial to partial[y].
 __global__ void __launch_bounds__(kThreads)
-field_partial(const float* __restrict__ src, int n_src,
+field_partial(const float* __restrict__ src, int n_src, int chunk,
               const float* __restrict__ tgt, int n_tgt, float eps,
-              float* __restrict__ partial) {
-  __shared__ float s[6][kTile];
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = t < n_tgt;
-  float tx = 0.f, ty = 0.f, tz = 0.f;
-  if (live) {
-    tx = tgt[3 * (size_t)t];
-    ty = tgt[3 * (size_t)t + 1];
-    tz = tgt[3 * (size_t)t + 2];
-  }
-  const int begin = blockIdx.y * kChunk;
-  const int end = min(begin + kChunk, n_src);
-  float rx = 0.f, ry = 0.f, rz = 0.f;  // term_R
-  float qx = 0.f, qy = 0.f, qz = 0.f;  // term_p
-  for (int base = begin; base < end; base += kTile) {
-    const int j = base + threadIdx.x;
-    if (j < end) {
+              float* __restrict__ partial, float* __restrict__ out) {
+  __shared__ float4 sa[kTile];   // x, y, z, px
+  __shared__ float2 sb[kTile];   // py, pz
+  const int i0 = blockIdx.x * kTargets + threadIdx.x;
+  float t[kPerThread][3];
+  float e[kPerThread][3];
 #pragma unroll
-      for (int c = 0; c < 6; ++c) s[c][threadIdx.x] = src[6 * (size_t)j + c];
+  for (int q = 0; q < kPerThread; ++q) {
+    const int i = i0 + q * kThreads;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      t[q][c] = i < n_tgt ? tgt[3 * (size_t)i + c] : 0.f;
+      e[q][c] = 0.f;
     }
-    __syncthreads();
-    const int m = min(kTile, end - base);
-    for (int k = 0; k < m; ++k) {
-      const float px = s[3][k], py = s[4][k], pz = s[5][k];
-      const float Rx = s[0][k] - tx;
-      const float Ry = s[1][k] - ty;
-      const float Rz = s[2][k] - tz;
-      const float r2 = Rx * Rx + Ry * Ry + Rz * Rz;
-      const bool zero = r2 == 0.f;
-      const float r = sqrtf(r2);
-      const float denom = r * r2 + eps;
-      const float c = px * Rx + py * Ry + pz * Rz;
-      const float safe_r2 = zero ? 1.f : r2;
-      const float inv = 1.f / (safe_r2 * denom);
-      const float a = zero ? 0.f : 3.f * c * inv;
-      const float b = zero ? 0.f : safe_r2 * inv;
-      rx += a * Rx;
-      ry += a * Ry;
-      rz += a * Rz;
-      qx += b * px;
-      qy += b * py;
-      qz += b * pz;
-    }
-    __syncthreads();
   }
-  if (live) {
-    float* out = partial + ((size_t)blockIdx.y * n_tgt + t) * 3;
-    out[0] = -(rx - qx);
-    out[1] = -(ry - qy);
-    out[2] = -(rz - qz);
+  const int begin = blockIdx.y * chunk;
+  const int end = min(begin + chunk, n_src);
+  for (int base = begin; base < end; base += kTile) {
+    const int m = min(kTile, end - base);
+    __syncthreads();             // the previous tile is spent
+    for (int s = threadIdx.x; s < m; s += kThreads) {
+      const float* p = src + 6 * (size_t)(base + s);
+      sa[s] = make_float4(p[0], p[1], p[2], p[3]);
+      sb[s] = make_float2(p[4], p[5]);
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int k = 0; k < m; ++k) {
+      const float4 a = sa[k];
+      const float2 b = sb[k];
+#pragma unroll
+      for (int q = 0; q < kPerThread; ++q) add_pair(a, b, t[q], eps, e[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    const int i = i0 + q * kThreads;
+    if (i >= n_tgt) continue;
+    if (gridDim.y == 1) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) out[3 * (size_t)i + c] = scrub(e[q][c]);
+    } else {
+      float* p = partial + ((size_t)blockIdx.y * n_tgt + i) * 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) p[c] = e[q][c];
+    }
   }
 }
 
@@ -102,32 +161,57 @@ __global__ void field_finish(const float* __restrict__ partial, int n_chunks,
     e[2] += p[2];
   }
 #pragma unroll
-  for (int k = 0; k < 3; ++k) out[3 * (size_t)t + k] = isfinite(e[k]) ? e[k] : 0.f;
+  for (int k = 0; k < 3; ++k) out[3 * (size_t)t + k] = scrub(e[k]);
+}
+
+// (chunks, sources a chunk) of the grid for n_src sources at n_tgt
+// targets: chunks of at most kMaxChunk sources, and more of at least
+// kMinChunk where fewer target blocks than kFillBlocks would leave SMs idle.
+void field_plan(int n_src, int n_tgt, int* n_chunks, int* chunk) {
+  if (n_src <= 0) {
+    *n_chunks = 0;
+    *chunk = 1;
+    return;
+  }
+  const int t_blocks = (n_tgt + kTargets - 1) / kTargets;
+  const int fill = min((kFillBlocks + t_blocks - 1) / t_blocks,
+                       (n_src + kMinChunk - 1) / kMinChunk);
+  const int want = max((n_src + kMaxChunk - 1) / kMaxChunk, fill);
+  *chunk = (n_src + want - 1) / want;
+  *n_chunks = (n_src + *chunk - 1) / *chunk;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of source chunks for n_src sources: the partial buffer the caller
-// allocates holds chunks x n_tgt x 3 floats.
-int dipole_field_chunks(int n_src) { return (n_src + kChunk - 1) / kChunk; }
+// Number of partial fields dipole_field writes for n_src sources at n_tgt
+// targets: the scratch the caller allocates holds that many x n_tgt x 3
+// floats (none for a single chunk, which writes out directly).
+int dipole_field_chunks(int n_src, int n_tgt) {
+  int n_chunks, chunk;
+  field_plan(n_src, n_tgt, &n_chunks, &chunk);
+  return n_chunks > 1 ? n_chunks : 0;
+}
 
 // src (n_src, 6) and tgt (n_tgt, 3), row-major float32 on the device;
-// partial (chunks, n_tgt, 3) scratch; out (n_tgt, 3). Returns
-// cudaGetLastError().
+// partial (dipole_field_chunks(n_src, n_tgt), n_tgt, 3) scratch; out
+// (n_tgt, 3). Returns cudaGetLastError().
 int dipole_field(const float* src, int n_src, const float* tgt, int n_tgt,
                  float eps, float* partial, float* out, cudaStream_t stream) {
   if (n_tgt <= 0) return 0;
-  const int n_chunks = dipole_field_chunks(n_src);
+  int n_chunks, chunk;
+  field_plan(n_src, n_tgt, &n_chunks, &chunk);
   if (n_chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int t_blocks = (n_tgt + kThreads - 1) / kThreads;
+  const int t_blocks = (n_tgt + kTargets - 1) / kTargets;
   if (n_chunks > 0) {
     field_partial<<<dim3(t_blocks, n_chunks), kThreads, 0, stream>>>(
-        src, n_src, tgt, n_tgt, eps, partial);
+        src, n_src, chunk, tgt, n_tgt, eps, partial, out);
   }
-  field_finish<<<t_blocks, kThreads, 0, stream>>>(partial, n_chunks, n_tgt,
-                                                  out);
+  if (n_chunks != 1) {
+    field_finish<<<(n_tgt + 127) / 128, 128, 0, stream>>>(partial, n_chunks,
+                                                          n_tgt, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -322,13 +322,15 @@ def xie_interaction_matrix(pts: torch.Tensor, C: float = 3.0,
     propagation loops take the index form instead). transposed: return I^T
     (M, T), the layout the sequential xie loop reads columns from. The
     card's kernel runs exactly the real rows and columns (the JAX bucket
-    padding is a TPU artefact)."""
+    padding is a TPU artefact); without targets it runs its symmetric mode,
+    the terms of each pair serving both I[i, j] and I[j, i]."""
     src = pts[:, :6].contiguous()
     tgt = src if targets is None else targets[:, :6].contiguous()
     if src.device.type == "cpu":
         I = xie_interaction_matrix_plain(tgt, src, C, transposed)
     else:
-        I = fields_cuda.xie_imatrix(tgt, src, C, transposed)
+        I = fields_cuda.xie_imatrix(tgt, src, C, transposed,
+                                    symmetric=targets is None)
     if knn_mask is not None:
         mask = as_f32(knn_mask, I.device)
         I = I * (mask.t() if transposed else mask)

@@ -106,23 +106,32 @@ def dipole_imatrix(targets: torch.Tensor, sources: torch.Tensor,
 
 
 def xie_imatrix(targets: torch.Tensor, sources: torch.Tensor, C: float,
-                transposed: bool = False) -> torch.Tensor:
+                transposed: bool = False, symmetric: bool = False) -> torch.Tensor:
     """The xie matrix I (T, M) of targets (T, 6) and sources (M, 6), or I^T
     (M, T) with the same bits when transposed — on the card, by
-    csrc/imatrix.cu's xie_imatrix."""
+    csrc/imatrix.cu's xie_imatrix, bit-equal to the plain version in both
+    layouts. symmetric: the targets are the sources (the caller's word; the
+    points are not compared). The kernel then takes the terms of each pair
+    (i, j) once and writes I[i, j] = (nn - (C nsR) ntR) / r3 and, by an
+    identity exact in float32, the mirror I[j, i] = (nn - (C ntR) nsR) /
+    r3: ~47 issued instructions an entry instead of ~69. Either way the
+    kernel is held by instruction issue (IEEE roots and divides), not by
+    the N^2 x 4 bytes it writes."""
     check_tensor(targets, "targets", 6)
     check_tensor(sources, "sources", 6)
     if sources.device != targets.device:
         raise ValueError("sources and targets on different devices")
+    if symmetric and targets.shape != sources.shape:
+        raise ValueError("symmetric: the targets must be the sources")
     lib, fn = _build.entry("imatrix", "xie_imatrix",
-                           [_P, _N, _P, _N, ctypes.c_float, _N, _P, _P])
+                           [_P, _N, _P, _N, ctypes.c_float, _N, _N, _P, _P])
     t, m = targets.shape[0], sources.shape[0]
     out = matrix_out(m, t, sources.device, "xie_imatrix") if transposed \
         else matrix_out(t, m, sources.device, "xie_imatrix")
     with torch.cuda.device(sources.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(targets.data_ptr(), t, sources.data_ptr(), m, float(C),
-                 int(transposed), out.data_ptr(), stream)
+                 int(transposed), int(symmetric), out.data_ptr(), stream)
     _build.check(lib, err, "xie_imatrix")
     LAUNCHES["xie_imatrix"] += 1
     return out
@@ -131,17 +140,26 @@ def xie_imatrix(targets: torch.Tensor, sources: torch.Tensor, C: float,
 def field_grad(sources: torch.Tensor, targets: torch.Tensor,
                eps: float) -> torch.Tensor:
     """E (T, 3) at targets (T, 3) from dipole sources (M, 6), non-finite
-    components scrubbed to 0 — on the card, by csrc/field.cu."""
+    components scrubbed to 0 — on the card, by csrc/field.cu, which is
+    bound by instruction issue: 4 targets a thread, the sources staged in
+    shared memory, the one-reciprocal pair formula with the hardware's
+    approximate root and reciprocal. It is held to the plain version within
+    1e-4 |E| + 1e-5 max|E| per component; at the lion's rest-point shape
+    (138869 x 41131) its worst component sits at 0.17 of that, as with
+    IEEE-rounded roots (the sums' order, not the roots). The source axis
+    is cut into chunks that fill the card; their partial fields (scratch
+    of dipole_field_chunks(M, T) x T x 3 floats, none for a single chunk)
+    are added in order: no atomics."""
     check_tensor(sources, "sources", 6)
     check_tensor(targets, "targets", 3)
     if sources.device != targets.device:
         raise ValueError("sources and targets on different devices")
-    lib, chunks = _build.entry("field", "dipole_field_chunks", [_N])
+    lib, chunks = _build.entry("field", "dipole_field_chunks", [_N, _N])
     _, fn = _build.entry("field", "dipole_field",
                    [_P, _N, _P, _N, ctypes.c_float, _P, _P, _P])
     m, t = sources.shape[0], targets.shape[0]
     out = torch.empty((t, 3), dtype=torch.float32, device=sources.device)
-    partial = torch.empty(max(chunks(m), 1) * t * 3, dtype=torch.float32,
+    partial = torch.empty(chunks(m, t) * t * 3, dtype=torch.float32,
                           device=sources.device)
     with torch.cuda.device(sources.device):
         stream = torch.cuda.current_stream().cuda_stream

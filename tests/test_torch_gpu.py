@@ -160,6 +160,8 @@ def test_wrappers_check_their_inputs(cuda_device):
         propagate_cuda.greedy_columns(pts[:, :3].contiguous(), 0, 1e-6)
     with pytest.raises(ValueError, match="starting point"):
         propagate_cuda.greedy_rows(fields.dipole_interaction_matrix(pts), 64)
+    with pytest.raises(ValueError, match="symmetric"):
+        fields_cuda.xie_imatrix(pts[:10].contiguous(), pts, 3.0, symmetric=True)
     # the key's index field holds 2^24 points: the wrapper and the C entry
     # point refuse more
     big = torch.zeros((2**24 + 1, 6), device=cuda_device)
@@ -206,7 +208,11 @@ def test_orient_simple_on_card_matches_cpu(cuda_device, cols):
     assert same == 1.0 if cols == 6 else same >= 0.999
 
 
-@pytest.mark.parametrize("n_src,n_tgt", [(1, 1), (2047, 129), (2049, 4000),
+# (1, 1) and (32, 700): one chunk, one launch; (505, 499): a graph_dipole
+# edge, cut into chunks of 32; 512 and 513 targets: one block of targets
+# (4 a thread) and one more
+@pytest.mark.parametrize("n_src,n_tgt", [(1, 1), (32, 700), (505, 499), (2047, 129),
+                                         (2049, 4000), (4097, 512), (4097, 513),
                                          (9000, 300)])
 def test_field_kernel_matches_plain(cuda_device, n_src, n_tgt):
     src = torch.as_tensor(sphere(n_src, 10), device=cuda_device)
@@ -492,18 +498,30 @@ def _ellipsoid(n, seed):
     return np.concatenate([v * a, nrm], axis=1).astype(np.float32)
 
 
-@pytest.mark.parametrize("n,C", [(1, 3.0), (1000, 3.0), (2049, 2.5)])
+# sizes about the kernel's 64-point tile: 1, 63, 64, 65 and 150 (over two
+# tiles, no multiple); targets = sources (symmetric mode: each pair's
+# terms give both I[i, j] and I[j, i]) and 333 other targets (general)
+@pytest.mark.parametrize("n,C", [(1, 3.0), (63, 3.0), (64, 2.5), (65, 3.0),
+                                 (150, 2.5), (1000, 3.0), (2049, 2.5)])
 def test_xie_matrix_kernel_is_bit_equal_in_both_layouts(cuda_device, n, C):
     pc = torch.as_tensor(sphere(n, 15), device=cuda_device)
-    if n > 100:
-        pc[n - 50:] = pc[:50]                    # coincident pairs: n . n
+    dup = min(50, n // 3)
+    if n > 40:
+        pc[n - dup:] = pc[:dup]                  # coincident pairs: n . n
+        pc[dup, :3] = 0.0                        # a pair 1e-20 apart, whose
+        pc[dup + 1, :3] = torch.tensor([1e-20, 0.0, 0.0])   # entry overflows: 0
     tgt = torch.as_tensor(sphere(333, 16), device=cuda_device) * 1.5
     for targets in (None, tgt):
         t = pc if targets is None else targets
         I = fields.xie_interaction_matrix(pc, C=C, targets=targets)
         IT = fields.xie_interaction_matrix(pc, C=C, targets=targets, transposed=True)
         assert torch.equal(I, fields.xie_interaction_matrix_plain(t, pc, C))
+        assert torch.equal(IT, fields.xie_interaction_matrix_plain(t, pc, C, True))
         assert torch.equal(IT, I.t())
+    if n > 40:
+        I = fields.xie_interaction_matrix(pc, C=C)
+        assert float(I[dup, dup + 1]) == 0.0 and float(I[dup + 1, dup]) == 0.0
+        assert not torch.equal(I, I.t())
 
 
 def _xie_check(pc, start, k, device, *, blocks=0, zeros=False):

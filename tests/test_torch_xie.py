@@ -56,6 +56,44 @@ def test_xie_matrix_transposed_layout_has_the_same_bits():
     np.testing.assert_array_equal(IT, I.T)
 
 
+@pytest.mark.parametrize("C", [3.0, 2.5])
+def test_xie_matrix_mirror_identity_is_exact(C):
+    """The identity csrc/imatrix.cu's symmetric mode rests on: from the
+    terms of pair (i, j) (source j at target i), I[j, i] = (nn - (C ntR)
+    nsR) / r3 where I[i, j] = (nn - (C nsR) ntR) / r3, bit for bit, though
+    I is not symmetric in float32."""
+    pc = _cloud(700, 47)
+    pc[650:] = pc[:50]                            # coincident pairs
+    pc[600, :3] = 0.0                             # a pair 1e-20 apart:
+    pc[601, :3] = [1e-20, 0.0, 0.0]               # its entry overflows
+    pts = torch.as_tensor(pc)
+    tx, ty, tz, nx, ny, nz = (pts[:, k:k + 1] for k in range(6))
+    sx, sy, sz, px, py, pz = (pts[:, k] for k in range(6))
+    Rx, Ry, Rz = sx - tx, sy - ty, sz - tz
+    r2 = Rx * Rx + Ry * Ry + Rz * Rz
+    zero = r2 == 0.0
+    r = fields.sqrt_rn(r2)
+    safe_r = torch.where(zero, torch.ones_like(r), r)
+    nsR = (px * Rx + py * Ry + pz * Rz) / safe_r
+    ntR = (nx * Rx + ny * Ry + nz * Rz) / safe_r
+    nn = px * nx + py * ny + pz * nz
+    r3 = torch.where(zero, torch.ones_like(r), r2 * r)
+
+    def value(first, second):
+        v = torch.where(zero, nn, (nn - C * first * second) / r3)
+        return torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+
+    I = fields.xie_interaction_matrix_plain(pts, pts, C)
+    assert torch.equal(value(nsR, ntR), I)
+    assert torch.equal(value(ntR, nsR), I.t())
+    assert torch.equal(value(ntR, nsR),
+                       fields.xie_interaction_matrix_plain(pts, pts, C, transposed=True))
+    assert not torch.equal(I, I.t())
+    assert float(I[600, 601]) == 0.0 and float(I[601, 600]) == 0.0
+    dup = (torch.arange(650, 700), torch.arange(50))
+    assert torch.equal(I[dup], nn[dup])            # r = 0: n . n
+
+
 def test_xie_matrix_matches_pallas_interpret():
     pc = _cloud(256, 45)
     tgt = _cloud(200, 46)
