@@ -12,10 +12,15 @@ Phases, one JSON line each:
                 and spills
   3. checks     each kernel against its plain version on the card:
                 potential 1000 lattice targets x 180k sources (+ a lattice
-                point coincident with a source: exactly 0 there), tolerance
-                |kernel - plain| <= 1e-4 |plain| + 1e-5 max|plain| on every
-                target (sums run in other orders); imatrix 4096 points with
-                duplicates, bit-equal; greedy row mode at 2000 and column
+                point coincident with a source: exactly 0 there), and at
+                each edge of its chunk plan (1, 31, 32, 2048, 2049 and 180k
+                sources at 1, 1000 and 1025 targets, the poisoned point at
+                180k), tolerance |kernel - plain| <= 1e-4 |plain| + 1e-5
+                max|plain| on every target (sums run in other orders);
+                imatrix, targets = sources (the symmetric mode), at 1, 63,
+                64, 65, 129, 3001 and 4096 points and a graph_dipole patch,
+                with duplicates and a pair 1e-22 apart (0), eps 1e-6 and
+                1e-2, then targets given, bit-equal; greedy row mode at 2000 and column
                 mode at 20000 points from a nonzero start, and its launch
                 shapes: a cloud whose second half duplicates its first
                 (exact ties across blocks, state in registers and in global
@@ -100,6 +105,11 @@ Phases, one JSON line each:
                 main path's shapes, the bound of each; there the imatrix
                 (10k) and the greedy (10k rows, 180k columns on the full
                 grid) are held bit-equal to their plain versions too. The
+                potential (1000 x 180k) and the imatrix (10k, and in its
+                general mode) also by the profiler's kernel time, and both
+                at one graph_dipole patch (the 10k run's patch nearest the
+                mean size, 458 points: 1000 x 458 and 458^2), with their
+                launches per call. The
                 column greedy at 20k, 50k, 100k and 180k on its own grid,
                 with the fit us a step = a + b N (a fit only: the grid
                 grows with N); on the full grid (one block an SM) at 1, 2,
@@ -223,6 +233,8 @@ KERNELS = {
     "field_mxu_expansion": ("dipole_tpu_torch/csrc/field_mma.cu",
                             "tools/mxu_field_experiment.py:67"),
 }
+# the profiler's name of the dipole matrix's kernel
+IMATRIX_KERNEL = "DipolePair"
 LIBRARY_CALLS = {"knn": "torch.topk(d2, k, largest=False) on the precomputed d2"}
 
 # metaball shapes (tools/make_shape.py's lion and a fixed hand): F = sum
@@ -354,6 +366,16 @@ def timed(fn):
     return a.elapsed_time(b), out
 
 
+def _potential_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The worst target's |got - want| over its tolerance: rtol 1e-4, plus
+    a floor of 1e-5 max|phi| for targets outside the shape, where the
+    double layer's sum nearly cancels (the sums run in other orders)."""
+    tol = 1e-4 * want.abs() + 1e-5 * float(want.abs().max())
+    if float(tol.max()) == 0.0:                 # every target exactly 0
+        return 0.0 if torch.equal(got, want) else float("inf")
+    return float(((got - want).abs() / tol).max())
+
+
 def max_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
     ia = a.contiguous().view(torch.int32).to(torch.int64)
     ib = b.contiguous().view(torch.int32).to(torch.int64)
@@ -412,47 +434,72 @@ def phase_checks(cloud180: torch.Tensor, cloud10: np.ndarray) -> dict:
     dev = cloud180.device
     errs = {}
     grid = torch.as_tensor(gen_grid(10), device=dev)
-    # potential, plus a lattice point coincident with a source
-    for poisoned in (False, True):
-        src = cloud180.clone()
+    # potential at 1000 lattice targets x 180k sources, plus a lattice point
+    # coincident with a source; then each edge of the chunk plan: 1, 31, 32,
+    # 2048, 2049 and 180k sources at 1 target, the lattice and the lattice
+    # and 25 more points, the poisoned point at 180k
+    extra = torch.as_tensor(np.random.default_rng(SEED).uniform(
+        -1, 1, (25, 3)).astype(np.float32), device=dev)
+    targets = {1: grid[555:556], 1000: grid, 1025: torch.cat([grid, extra])}
+    n180 = len(cloud180)
+    cases = [(n180, 1000, False)] + [(s, t, s == n180)
+                                     for s in (1, 31, 32, 2048, 2049, n180)
+                                     for t in (1, 1000, 1025)]
+    for n_src, n_tgt, poisoned in cases:
+        src = cloud180[:n_src].clone()
+        tgt = targets[n_tgt]
+        at = 555 if n_tgt > 1 else 0            # grid[555]'s index in tgt
         if poisoned:
-            src[0, :3] = grid[555]
-        k = fields.potential(src, grid)
-        p = fields.potential_plain(src, grid)
+            src[0, :3] = tgt[at]
+        k = fields.potential(src, tgt)
+        p = fields.potential_plain(src, tgt)
         torch.cuda.synchronize()
-        diff = (k - p).abs()
-        err = float(diff.max())
-        # per target: rtol 1e-4, plus a floor of 1e-5 max|phi| for targets
-        # outside the shape, where the double layer's sum nearly cancels
-        atol = 1e-5 * float(p.abs().max())
-        worst = float((diff / (1e-4 * p.abs() + atol)).max())
+        err = float((k - p).abs().max())
+        worst = _potential_err(k, p)
         require(bool(torch.isfinite(k).all()), "potential: non-finite output")
         require(worst <= 1.0, f"potential: error {worst} x its per-target "
-                              f"tolerance (rtol 1e-4, atol {atol})")
+                              f"tolerance at {n_tgt} x {n_src}")
         if poisoned:
-            require(float(k[555]) == 0.0 and float(p[555]) == 0.0,
-                    f"potential: poisoned target {float(k[555])}, "
-                    f"{float(p[555])} (want exactly 0)")
+            require(float(k[at]) == 0.0 and float(p[at]) == 0.0,
+                    f"potential: poisoned target {float(k[at])}, "
+                    f"{float(p[at])} (want exactly 0)")
         errs["dipole_potential"] = max(errs.get("dipole_potential", 0.0), err)
-        emit({"phase": "check", "kernel": "dipole_potential",
-              "poisoned_target": poisoned, "max_abs_err": err,
-              "rtol": 1e-4, "atol": atol,
+        emit({"phase": "check", "kernel": "dipole_potential", "targets": n_tgt,
+              "sources": n_src, "poisoned_target": poisoned, "max_abs_err": err,
               "median_abs_phi": float(p.abs().median()),
               "max_err_over_tol": worst})
 
-    # interaction matrix: 4096 points, 256 of them duplicated
-    pts = torch.as_tensor(cloud10[:4096], device=dev).clone()
-    pts[3840:] = pts[:256]
-    k = fields.dipole_interaction_matrix(pts)
-    p = fields.dipole_interaction_matrix_plain(pts, pts, 1e-6)
-    torch.cuda.synchronize()
-    ulp = max_ulp(k, p)
-    errs["dipole_imatrix"] = float((k - p).abs().max())
-    emit({"phase": "check", "kernel": "dipole_imatrix", "n": 4096,
-          "bit_equal": bool(torch.equal(k, p)), "max_ulp": ulp,
-          "max_abs_err": errs["dipole_imatrix"]})
-    require(torch.equal(k, p), f"imatrix: not bit-equal (max {ulp} ulp)")
-    require(bool((torch.diagonal(k) == 0).all()), "imatrix: diagonal not 0")
+    # interaction matrix, targets = sources: 1, 63, 64, 65, 129, 3001 and
+    # 4096 points (about the 64-point tile) with duplicates and a pair
+    # 1e-22 apart whose entries overflow (0), a graph_dipole patch, at the
+    # greedy's and the replay's eps 1e-6 and at 1e-2; then targets given
+    errs["dipole_imatrix"] = 0.0
+    clouds = [torch.as_tensor(cloud10[:n], device=dev).clone()
+              for n in (1, 63, 64, 65, 129, 3001, 4096)] + [_graph_dipole_patch(dev)]
+    for pts in clouds:
+        n, dup = len(pts), len(pts) // 16
+        if n > 64:
+            pts[n - dup:] = pts[:dup]
+            pts[dup, :3] = 0.0
+            pts[dup + 1, :3] = torch.tensor([1e-22, 0.0, 0.0])
+        for eps in (1e-6, 1e-2):
+            k = fields.dipole_interaction_matrix(pts, eps=eps)
+            p = fields.dipole_interaction_matrix_plain(pts, pts, eps)
+            torch.cuda.synchronize()
+            errs["dipole_imatrix"] = max(errs["dipole_imatrix"], _equal(
+                "dipole_imatrix", k, p, n=n, eps=eps, max_ulp=max_ulp(k, p)))
+            require(bool((torch.diagonal(k) == 0).all()), "imatrix: diagonal not 0")
+            if n > 64:
+                require(float(k[dup, dup + 1]) == 0.0 and float(k[dup + 1, dup]) == 0.0
+                        and bool((k[torch.arange(n - dup, n), torch.arange(dup)] == 0).all()),
+                        "imatrix: coincident or overflowing pair not 0")
+    tgt = torch.as_tensor(cloud10[5000:5333], device=dev) * 1.5
+    for n in (1, 65, 4096):
+        pts = torch.as_tensor(cloud10[:n], device=dev)
+        errs["dipole_imatrix"] = max(errs["dipole_imatrix"], _equal(
+            "dipole_imatrix", fields.dipole_interaction_matrix(pts, targets=tgt),
+            fields.dipole_interaction_matrix_plain(tgt, pts, 1e-6), n=n,
+            targets=len(tgt)))
 
     # greedy, row mode at 2000 and column mode at 20000, nonzero starts
     I = fields.dipole_interaction_matrix(
@@ -807,6 +854,7 @@ def phase_main_path(gt10: np.ndarray, gt180: np.ndarray) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, plain = _read_counts()
+        RUN_COUNTS[label] = counts
         agree = sign_agreement(out, gt)
         outward = float(((out[:, 3:6] * gt[:, 3:6]).sum(1) > 0).mean())
         emit({"phase": "main_path", "run": label, "n": len(inp),
@@ -844,28 +892,28 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
     pc10 = torch.as_tensor(Transform.trans(scramble(gt10, SEED + 1))[0],
                            device=dev)
     grid = torch.as_tensor(gen_grid(10), device=dev)
-    n180, n10, T = len(pc180), len(pc10), len(grid)
+    n180, n10 = len(pc180), len(pc10)
 
-    b = bound_ms(24 * n180 + 12 * T + 4 * T, OPS_POTENTIAL * T * n180)
-    res["dipole_potential"] = dict(
-        shape=f"{T} targets x {n180} sources",
-        ms=cuda_ms(lambda: fields.potential(pc180, grid), 20, 3),
-        plain_ms=cuda_ms(lambda: fields.potential_plain(pc180, grid), 5, 1),
-        bound_ms=b[0], bound_by=b[1])
+    res["dipole_potential"] = _potential_shape(pc180, grid, "180k_3col", 20)
 
     # each kernel's first call gives the output held against the plain one
     # and warms up its timing
-    b = bound_ms(24 * 2 * n10 + 4 * n10 * n10, OPS_IMATRIX * n10 * n10)
+    res["dipole_imatrix"] = _imatrix_shape(pc10, "10k_6col_diffuse", 10)
     I = fields.dipole_interaction_matrix(pc10)
-    plain = fields.dipole_interaction_matrix_plain(pc10, pc10, 1e-6)
-    res["dipole_imatrix"] = dict(
-        shape=f"{n10} x {n10}",
-        max_abs_err=_equal("dipole_imatrix", I, plain, n=n10, main_path_shape=True),
-        ms=cuda_ms(lambda: fields.dipole_interaction_matrix(pc10), 10, 0),
-        plain_ms=cuda_ms(
-            lambda: fields.dipole_interaction_matrix_plain(pc10, pc10, 1e-6), 3, 0),
-        bound_ms=b[0], bound_by=b[1])
-    del plain
+    # the general mode (targets given, no main path) at the same shape
+    require(torch.equal(fields.dipole_interaction_matrix(pc10, targets=pc10), I),
+            "imatrix: the general mode differs from the symmetric one at 10k")
+    res["dipole_imatrix"]["other_shapes"] = {"10k_general": dict(
+        shape=f"{n10} x {n10}, targets given",
+        ms=cuda_ms(lambda: fields.dipole_interaction_matrix(pc10, targets=pc10), 10, 1),
+        profiler_ms=profiled_ms(lambda: fields.dipole_interaction_matrix(
+            pc10, targets=pc10), IMATRIX_KERNEL, 10))}
+    # both kernels at one patch of the graph_dipole run (24 calls a run)
+    patch = _graph_dipole_patch(dev)
+    res["dipole_potential"]["other_shapes"] = {"graph_dipole_patch": _potential_shape(
+        patch, grid, "graph_dipole10k_grid_cli", 50)}
+    res["dipole_imatrix"]["other_shapes"]["graph_dipole_patch"] = _imatrix_shape(
+        patch, "graph_dipole10k_grid_cli", 50)
 
     b = bound_ms(4 * n10 * n10 + 8 * n10, OPS_GREEDY_ROW * n10 * (n10 - 1))
     got = propagate_cuda.greedy_rows(I, 0)
@@ -959,6 +1007,63 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
           "greedy_columns_blocks_at_20480": blocks_sweep,
           "greedy_one_block_threshold": threshold, "tiers_at_matrix_limit": tiers})
     return res
+
+
+def _potential_shape(src, grid, run, reps) -> dict:
+    """The potential at the lattice from sources src: held to its plain
+    version per target, timed by events and by the profiler's kernel time,
+    with its bound and its launches per call of main-path run `run`."""
+    from dipole_tpu_torch.ops import fields
+
+    S, T = len(src), len(grid)
+    got = fields.potential(src, grid)
+    plain_ms, want = timed(lambda: fields.potential_plain(src, grid))
+    b = bound_ms(24 * S + 12 * T + 4 * T, OPS_POTENTIAL * T * S)
+    return dict(
+        shape=f"{T} targets x {S} sources",
+        max_abs_err=float((got - want).abs().max()),
+        max_err_over_tol=_potential_err(got, want),
+        ms=cuda_ms(lambda: fields.potential(src, grid), reps, 3),
+        profiler_ms=profiled_ms(lambda: fields.potential(src, grid),
+                                ("potential_partial", "potential_finish"), reps),
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+        launches_per_call=RUN_COUNTS[run]["dipole_potential"])
+
+
+def _imatrix_shape(pts, run, reps) -> dict:
+    """The dipole matrix of pts (targets = sources): held bit-equal to its
+    plain version, timed by events and by the profiler's kernel time, with
+    its bound and its launches per call of main-path run `run`."""
+    from dipole_tpu_torch.ops import fields
+
+    n = len(pts)
+    got = fields.dipole_interaction_matrix(pts)
+    plain_ms, want = timed(lambda: fields.dipole_interaction_matrix_plain(pts, pts, 1e-6))
+    err = _equal("dipole_imatrix", got, want, n=n, main_path_shape=run)
+    del got, want
+    b = bound_ms(24 * 2 * n + 4 * n * n, OPS_IMATRIX * n * n)
+    return dict(
+        shape=f"{n} x {n}", max_abs_err=err,
+        ms=cuda_ms(lambda: fields.dipole_interaction_matrix(pts), reps, 1),
+        profiler_ms=profiled_ms(lambda: fields.dipole_interaction_matrix(pts),
+                                IMATRIX_KERNEL, reps),
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+        launches_per_call=RUN_COUNTS[run]["dipole_imatrix"])
+
+
+def _graph_dipole_patch(dev) -> torch.Tensor:
+    """One patch of graph_dipole's run on the 10k ellipsoid (grid, 10
+    parts: 24 patches of 151-624 points), the one nearest the mean size,
+    normalized as propagate_points_file does before its matrix and its
+    sign fix."""
+    from dipole_tpu_torch.ops.patching import divide_pc_with_ijk
+    from dipole_tpu_torch.utils.io import Transform
+
+    pc = Transform.trans(ellipsoid(10000, SEED))[0]
+    patches, _ = divide_pc_with_ijk(pc, 10, (-1.5, 1.5), 0)
+    mean = len(pc) / len(patches)
+    patch = min(patches, key=lambda p: abs(len(p) - mean))
+    return torch.as_tensor(Transform.trans(pc[patch])[0], device=dev)
 
 
 def _patch_run(label, fn, gt, path_kernels, launches):

@@ -22,9 +22,10 @@
 // targets a thread in registers and stages its chunk's sources in shared
 // memory kTile at a time, one float4 (x, y, z, px) and one float2 (py, pz)
 // a source, read by broadcast. The source axis is cut into chunks along
-// grid.y, planned on the host (field_plan) so that each shape fills the
-// 132 SMs: chunks of at most kMaxChunk sources (the transfer: 352 target
-// blocks x 5 chunks; the lion: 81 x 68), and, where the target blocks are
+// grid.y, planned on the host (common.cuh's chunked::plan, shared with
+// csrc/potential.cu) so that each shape fills the 132 SMs: chunks of at
+// most kMaxChunk sources (the transfer: 352 target blocks x 5 chunks; the
+// lion: 81 x 68), and, where the target blocks are
 // few, as many chunks of at least kMinChunk sources as bring the grid to
 // kFillBlocks (a graph_dipole edge of 505 x 499: 16 chunks of 32). Each
 // block writes its chunk's partial field and field_finish adds the chunks
@@ -52,25 +53,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kPerThread = 4;                    // targets a thread
-constexpr int kTargets = kThreads * kPerThread;  // targets a block
-constexpr int kTile = 256;                       // sources staged at a time
-constexpr int kMaxChunk = 2048;                  // sources a block, at most
-constexpr int kMinChunk = 32;                    // and at least, when cut finer
-constexpr int kFillBlocks = 8 * 132;             // blocks that fill the card
-
-__device__ __forceinline__ float root(float x) {
-  float y;
-  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float recip(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using chunked::kPerThread;
+using chunked::kTargets;
+using chunked::kThreads;
+using chunked::kTile;
 
 // e += the field of source (a.xyz, moment a.w b.x b.y) at target t.
 __device__ __forceinline__ void add_pair(float4 a, float2 b, const float* t,
@@ -87,10 +73,6 @@ __device__ __forceinline__ void add_pair(float4 a, float2 b, const float* t,
   e[0] = __fmaf_rn(cb, a.w, __fmaf_rn(-ca, Rx, e[0]));
   e[1] = __fmaf_rn(cb, b.x, __fmaf_rn(-ca, Ry, e[1]));
   e[2] = __fmaf_rn(cb, b.y, __fmaf_rn(-ca, Rz, e[2]));
-}
-
-__device__ __forceinline__ float scrub(float x) {
-  return isfinite(x) ? x : 0.f;
 }
 
 // Block (x, y) sums sources [y chunk, (y + 1) chunk) at targets
@@ -120,11 +102,7 @@ field_partial(const float* __restrict__ src, int n_src, int chunk,
   for (int base = begin; base < end; base += kTile) {
     const int m = min(kTile, end - base);
     __syncthreads();             // the previous tile is spent
-    for (int s = threadIdx.x; s < m; s += kThreads) {
-      const float* p = src + 6 * (size_t)(base + s);
-      sa[s] = make_float4(p[0], p[1], p[2], p[3]);
-      sb[s] = make_float2(p[4], p[5]);
-    }
+    chunked::stage_sources(src, base, m, sa, sb);
     __syncthreads();
 #pragma unroll 2
     for (int k = 0; k < m; ++k) {
@@ -164,23 +142,6 @@ __global__ void field_finish(const float* __restrict__ partial, int n_chunks,
   for (int k = 0; k < 3; ++k) out[3 * (size_t)t + k] = scrub(e[k]);
 }
 
-// (chunks, sources a chunk) of the grid for n_src sources at n_tgt
-// targets: chunks of at most kMaxChunk sources, and more of at least
-// kMinChunk where fewer target blocks than kFillBlocks would leave SMs idle.
-void field_plan(int n_src, int n_tgt, int* n_chunks, int* chunk) {
-  if (n_src <= 0) {
-    *n_chunks = 0;
-    *chunk = 1;
-    return;
-  }
-  const int t_blocks = (n_tgt + kTargets - 1) / kTargets;
-  const int fill = min((kFillBlocks + t_blocks - 1) / t_blocks,
-                       (n_src + kMinChunk - 1) / kMinChunk);
-  const int want = max((n_src + kMaxChunk - 1) / kMaxChunk, fill);
-  *chunk = (n_src + want - 1) / want;
-  *n_chunks = (n_src + *chunk - 1) / *chunk;
-}
-
 }  // namespace
 
 extern "C" {
@@ -190,7 +151,7 @@ extern "C" {
 // floats (none for a single chunk, which writes out directly).
 int dipole_field_chunks(int n_src, int n_tgt) {
   int n_chunks, chunk;
-  field_plan(n_src, n_tgt, &n_chunks, &chunk);
+  chunked::plan(n_src, n_tgt, &n_chunks, &chunk);
   return n_chunks > 1 ? n_chunks : 0;
 }
 
@@ -201,7 +162,7 @@ int dipole_field(const float* src, int n_src, const float* tgt, int n_tgt,
                  float eps, float* partial, float* out, cudaStream_t stream) {
   if (n_tgt <= 0) return 0;
   int n_chunks, chunk;
-  field_plan(n_src, n_tgt, &n_chunks, &chunk);
+  chunked::plan(n_src, n_tgt, &n_chunks, &chunk);
   if (n_chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int t_blocks = (n_tgt + kTargets - 1) / kTargets;
   if (n_chunks > 0) {

@@ -56,18 +56,6 @@ constexpr int kPerThread = 4;                       // targets a thread
 constexpr int kTargets = kThreads * kPerThread;     // targets a block
 constexpr int kTile = 256;                          // sources staged at a time
 
-__device__ __forceinline__ float root(float x) {
-  float y;
-  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float recip(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // I of source (a.xyz, a.w b.x b.y) at target t (x y z nx ny nz); 0 when
 // not finite, coincident pairs included.
 __device__ __forceinline__ float pair(float4 a, float2 b, const float* t,

@@ -147,12 +147,14 @@ def dipole_interaction_matrix_plain(targets: torch.Tensor, sources: torch.Tensor
 def dipole_interaction_matrix(pts: torch.Tensor, eps: float = 1e-6,
                               targets: torch.Tensor | None = None) -> torch.Tensor:
     """I[i, j] = (dipole field of point j evaluated at point i) . n_i.
-    pts (M, >=6) sources; targets (T, >=6), default pts."""
+    pts (M, >=6) sources; targets (T, >=6), default pts. Without targets
+    the card's kernel runs its symmetric mode, the terms of each pair
+    serving both I[i, j] and I[j, i]."""
     src = pts[:, :6].contiguous()
     tgt = src if targets is None else targets[:, :6].contiguous()
     if src.device.type == "cpu":
         return dipole_interaction_matrix_plain(tgt, src, eps)
-    return fields_cuda.dipole_imatrix(tgt, src, eps)
+    return fields_cuda.dipole_imatrix(tgt, src, eps, symmetric=targets is None)
 
 
 def field_grad_plain(sources: torch.Tensor, targets: torch.Tensor,

@@ -51,16 +51,26 @@ def check_tensor(t: torch.Tensor, name: str, cols: int | None = None,
 
 def potential(sources: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """phi (T,) at targets (T, 3) from dipole sources (M, 6), non-finite
-    totals scrubbed to 0 — on the card, by csrc/potential.cu."""
+    totals scrubbed to 0 — on the card, by csrc/potential.cu, which is bound
+    by instruction issue: the field's design (4 targets a thread, the
+    sources staged in shared memory, source chunks that fill the card) with
+    one approximate reciprocal square root a pair, ~14 issued instructions
+    (0.106 ms at the sign fix's 1000 x 180000 on an H100, 43% of the bound;
+    0.356 with IEEE roots, one target a thread). It is held to the plain
+    version within 1e-4 |phi| + 1e-5 max|phi| per target (the worst at
+    0.0026 of that there). A target on a source stays poisoned (0/0) until
+    its total is scrubbed to 0. The partial sums of the chunks (scratch of
+    dipole_potential_chunks(M, T) x T floats, none for a single chunk) are
+    added in a fixed order: no atomics."""
     check_tensor(sources, "sources", 6)
     check_tensor(targets, "targets", 3)
     if sources.device != targets.device:
         raise ValueError("sources and targets on different devices")
-    lib, chunks = _build.entry("potential", "dipole_potential_chunks", [_N])
+    lib, chunks = _build.entry("potential", "dipole_potential_chunks", [_N, _N])
     _, fn = _build.entry("potential", "dipole_potential", [_P, _N, _P, _N, _P, _P, _P])
     m, t = sources.shape[0], targets.shape[0]
     out = torch.empty(t, dtype=torch.float32, device=sources.device)
-    partial = torch.empty(max(chunks(m), 1) * t, dtype=torch.float32,
+    partial = torch.empty(chunks(m, t) * t, dtype=torch.float32,
                           device=sources.device)
     with torch.cuda.device(sources.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -85,21 +95,32 @@ def matrix_out(rows: int, cols: int, device, what: str) -> torch.Tensor:
 
 
 def dipole_imatrix(targets: torch.Tensor, sources: torch.Tensor,
-                   eps: float) -> torch.Tensor:
+                   eps: float, symmetric: bool = False) -> torch.Tensor:
     """I (T, M), I[i, j] = E_j(x_i) . n_i, from targets (T, 6) and sources
-    (M, 6) — on the card, by csrc/imatrix.cu."""
+    (M, 6) — on the card, by csrc/imatrix.cu's dipole_imatrix, bit-equal to
+    the plain version. symmetric: the targets are the sources (the caller's
+    word; the points are not compared). The kernel then takes the terms of
+    each pair (i, j) once (one IEEE root, three IEEE divides) and writes
+    I[i, j] = -((3 c) Rn / D - pn / denom) and, by an identity exact in
+    float32, the mirror I[j, i] = -((3 Rn) c / D - pn / denom): ~52 issued
+    instructions an entry, 0.218 ms at 10000^2 on an H100 (0.326 one entry
+    a thread; the general mode, 0.287). Either way the kernel is held by
+    instruction issue, not by the T x M x 4 bytes it writes; tiles of 32
+    instead of 64 fill the card at graph_dipole's few hundred points."""
     check_tensor(targets, "targets", 6)
     check_tensor(sources, "sources", 6)
     if sources.device != targets.device:
         raise ValueError("sources and targets on different devices")
+    if symmetric and targets.shape != sources.shape:
+        raise ValueError("symmetric: the targets must be the sources")
     lib, fn = _build.entry("imatrix", "dipole_imatrix",
-                     [_P, _N, _P, _N, ctypes.c_float, _P, _P])
+                           [_P, _N, _P, _N, ctypes.c_float, _N, _P, _P])
     t, m = targets.shape[0], sources.shape[0]
     out = matrix_out(t, m, sources.device, "dipole_imatrix")
     with torch.cuda.device(sources.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(targets.data_ptr(), t, sources.data_ptr(), m, float(eps),
-                 out.data_ptr(), stream)
+                 int(symmetric), out.data_ptr(), stream)
     _build.check(lib, err, "dipole_imatrix")
     LAUNCHES["dipole_imatrix"] += 1
     return out

@@ -9,6 +9,7 @@ from jax.experimental.pallas import tpu as pltpu
 from dipole_tpu.ops import fields as jfields
 from dipole_tpu.ops import fields_pallas as jpallas
 from dipole_tpu_torch.ops import _build, fields, fields_cuda
+from dipole_tpu_torch.utils.io import gen_grid
 from tests.conftest import make_sphere, scramble_signs
 
 
@@ -54,6 +55,33 @@ def test_potential_coincident_pair_is_exactly_zero():
     _assert_potential_close(got, want)
 
 
+def test_potential_rsqrt_cubed_formula_keeps_the_poisoning():
+    """csrc/potential.cu's arithmetic in float32: ir = 1/sqrt(r2), a
+    subnormal r2 taken as 0 (rsqrt.approx.ftz), phi += ((c ir) ir) ir. A
+    lattice point on a source makes its total NaN (c ir = 0 inf), a source
+    1e-20 from a target makes that total non-finite (r2 subnormal); both are
+    0 once scrubbed, as in the plain version, and the other targets stay
+    within the kernel's tolerance of potential_plain."""
+    src = _t(random_cloud(3000, 19))
+    tgt = torch.cat([torch.as_tensor(gen_grid(10)), torch.zeros((1, 3))])
+    src[5, :3] = tgt[555]                      # a lattice point on a source
+    src[6, :3] = torch.tensor([1e-20, 0.0, 0.0])   # r2 = 1e-40 at the origin
+    Rx, Ry, Rz = (src[:, k] - tgt[:, k:k + 1] for k in range(3))
+    r2 = Rx * Rx + Ry * Ry + Rz * Rz
+    assert 0 < float(r2[1000, 6]) < torch.finfo(torch.float32).tiny
+    r2 = torch.where(r2 < torch.finfo(torch.float32).tiny, torch.zeros_like(r2), r2)
+    ir = torch.rsqrt(r2)
+    c = src[:, 3] * Rx + src[:, 4] * Ry + src[:, 5] * Rz
+    raw = (c * ir * ir * ir).sum(1)
+    assert torch.isnan(raw[555]) and not torch.isfinite(raw[1000])
+    got = torch.where(torch.isfinite(raw), raw, torch.zeros_like(raw))
+    want = fields.potential_plain(src, tgt)
+    assert float(got[555]) == float(want[555]) == 0.0
+    assert float(got[1000]) == float(want[1000]) == 0.0
+    assert int(torch.isfinite(raw).sum()) == len(tgt) - 2
+    _assert_potential_close(got.numpy(), want.numpy())
+
+
 def test_potential_spans_several_plain_tiles(monkeypatch):
     """The plain version's source tiling adds tile sums in order."""
     monkeypatch.setattr(fields, "_PLAIN_BLOCK_S", 64)
@@ -96,6 +124,40 @@ def test_interaction_matrix_targets_matches_xla():
     # pn/..): rtol 1e-5 plus an absolute floor of 1e-6 of the largest entry
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("eps", [1e-6, 1e-2])
+def test_interaction_matrix_mirror_identity_is_exact(eps):
+    """The identity csrc/imatrix.cu's symmetric dipole mode rests on: from
+    the terms of pair (i, j) (source j at target i), I[j, i] = -((3 Rn) c /
+    D - pn / denom) where I[i, j] = -((3 c) Rn / D - pn / denom), bit for
+    bit, though I is not symmetric in float32."""
+    pc = _cloud_with_duplicates(n=700, seed=18)   # 40 coincident pairs
+    pc[600, :3] = 0.0                             # a pair 1e-22 apart: D
+    pc[601, :3] = [1e-22, 0.0, 0.0]               # underflows, its entries overflow
+    pts = _t(pc)
+    tx, ty, tz, nx, ny, nz = (pts[:, k:k + 1] for k in range(6))
+    sx, sy, sz, px, py, pz = (pts[:, k] for k in range(6))
+    Rx, Ry, Rz = sx - tx, sy - ty, sz - tz
+    r2 = Rx * Rx + Ry * Ry + Rz * Rz
+    zero = r2 == 0.0
+    denom = fields.sqrt_rn(r2) * r2 + eps
+    c = px * Rx + py * Ry + pz * Rz
+    Rn = nx * Rx + ny * Ry + nz * Rz
+    pd = (px * nx + py * ny + pz * nz) / denom
+    D = torch.where(zero, torch.ones_like(r2), r2) * denom
+
+    def value(first, second):
+        v = -(3.0 * first * second / D - pd)
+        return torch.where(zero | ~torch.isfinite(v), torch.zeros_like(v), v)
+
+    I = fields.dipole_interaction_matrix_plain(pts, pts, eps)
+    assert torch.equal(value(c, Rn), I)
+    assert torch.equal(value(Rn, c), I.t())
+    assert not torch.equal(I, I.t())
+    assert float(I[600, 601]) == 0.0 and float(I[601, 600]) == 0.0
+    dup = (torch.arange(660, 700), torch.arange(40))
+    assert bool((I[dup] == 0).all()) and bool((I.t()[dup] == 0).all())
 
 
 def test_interaction_matrix_matches_pallas_interpret():

@@ -71,6 +71,64 @@ def test_imatrix_kernel_is_bit_equal(cuda_device):
                        fields.dipole_interaction_matrix_plain(tgt, pc, 1e-6))
 
 
+# each edge of the chunk plan (csrc/common.cuh's chunked::plan): 1, 31 and
+# 32 sources (one chunk at one target), 2048 and 2049, and 180000 (528
+# chunks at the lattice); 1 target, the lattice's 1000 and 1025 (a third
+# block of 512 targets); a lattice point on a source (exactly 0 there)
+@pytest.mark.parametrize("n_src", [1, 31, 32, 2048, 2049, 180000])
+@pytest.mark.parametrize("n_tgt", [1, 1000, 1025])
+def test_potential_kernel_chunk_plan_edges(cuda_device, n_src, n_tgt):
+    grid = torch.as_tensor(gen_grid(10), device=cuda_device)
+    extra = torch.as_tensor(np.random.default_rng(26).uniform(-1, 1, (25, 3))
+                            .astype(np.float32), device=cuda_device)
+    tgt = {1: grid[555:556], 1000: grid, 1025: torch.cat([grid, extra])}[n_tgt]
+    at = 0 if n_tgt == 1 else 555                # grid[555]'s index in tgt
+    src = torch.as_tensor(sphere(n_src, 27), device=cuda_device)
+    src[0, :3] = tgt[at]
+    k = fields.potential(src, tgt)
+    p = fields.potential_plain(src, tgt)
+    torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-5 * float(p.abs().max()))
+    assert float(k[at]) == 0.0 and float(p[at]) == 0.0
+    assert bool(torch.isfinite(k).all())
+
+
+def test_potential_and_field_take_no_targets_or_no_sources(cuda_device):
+    """The chunk plan shared by both kernels: no targets, an empty output;
+    no sources, zeros."""
+    src = torch.as_tensor(sphere(100, 29), device=cuda_device)
+    tgt = src[:, :3].contiguous()
+    none = torch.zeros((0, 3), device=cuda_device)
+    assert fields.potential(src, none).shape == (0,)
+    assert fields.field_grad(src, none).shape == (0, 3)
+    assert torch.equal(fields.potential(src[:0], tgt), torch.zeros(100, device=cuda_device))
+    assert torch.equal(fields.field_grad(src[:0], tgt),
+                       torch.zeros((100, 3), device=cuda_device))
+
+
+# targets = sources (symmetric mode: each pair's terms give I[i, j] and
+# the mirror I[j, i]) at sizes about the 64-point tile, a graph_dipole
+# patch's 458 points, 3001 and 4096, with duplicates and a pair 1e-22
+# apart (entries that overflow: 0), at eps 1e-6 (the replay's) and 1e-2;
+# then 333 other targets (general mode)
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 458, 3001, 4096])
+@pytest.mark.parametrize("eps", [1e-6, 1e-2])
+def test_imatrix_symmetric_mode_is_bit_equal(cuda_device, n, eps):
+    pc = torch.as_tensor(sphere(n, 25), device=cuda_device)
+    dup = n // 16
+    if n > 64:
+        pc[n - dup:] = pc[:dup]
+        pc[dup, :3] = 0.0
+        pc[dup + 1, :3] = torch.tensor([1e-22, 0.0, 0.0])
+    I = fields.dipole_interaction_matrix(pc, eps=eps)
+    assert torch.equal(I, fields.dipole_interaction_matrix_plain(pc, pc, eps))
+    if n > 64:
+        assert float(I[dup, dup + 1]) == 0.0 and float(I[dup + 1, dup]) == 0.0
+        assert not torch.equal(I, I.t())
+    tgt = torch.as_tensor(sphere(333, 28), device=cuda_device) * 1.5
+    assert torch.equal(fields.dipole_interaction_matrix(pc, eps=eps, targets=tgt),
+                       fields.dipole_interaction_matrix_plain(tgt, pc, eps))
+
+
 @pytest.mark.parametrize("mode", ["rows", "columns"])
 def test_greedy_kernel_is_bit_equal(cuda_device, mode):
     pts = torch.as_tensor(sphere(7000, 4), device=cuda_device)
@@ -162,6 +220,8 @@ def test_wrappers_check_their_inputs(cuda_device):
         propagate_cuda.greedy_rows(fields.dipole_interaction_matrix(pts), 64)
     with pytest.raises(ValueError, match="symmetric"):
         fields_cuda.xie_imatrix(pts[:10].contiguous(), pts, 3.0, symmetric=True)
+    with pytest.raises(ValueError, match="symmetric"):
+        fields_cuda.dipole_imatrix(pts[:10].contiguous(), pts, 1e-6, symmetric=True)
     # the key's index field holds 2^24 points: the wrapper and the C entry
     # point refuse more
     big = torch.zeros((2**24 + 1, 6), device=cuda_device)
