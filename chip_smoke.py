@@ -148,9 +148,11 @@ Phases, one JSON line each:
                 traced (torch.profiler: its bulk and decision kernels'
                 device time, the device's idle share). The
                 tensor-core kernels at the tool's shape: their ms from the
-                tool's run, their plain versions' from the checks, their
-                bounds counting the CUDA-core pair math at the fp32 peak
-                against the 3xTF32 products at the TF32 peak
+                tool's run and the profiler's device time, over field.cu's
+                device time at the same panel, their plain versions' ms
+                from the checks, their bounds counting the CUDA-core pair
+                math at the fp32 peak against the 3xTF32 products at the
+                TF32 peak
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero before the
@@ -1869,12 +1871,18 @@ def _mxu_control(name, s, t):
     """The one-pass control (MXU_CONTROL, built in the build phase) on s, t."""
     import ctypes
 
-    fn = getattr(ctypes.CDLL(str(MXU_CONTROL)), f"dipole_{name}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-    out = torch.empty((t.shape[0], 3), dtype=torch.float32, device=t.device)
-    err = fn(s.data_ptr(), s.shape[0], t.data_ptr(), t.shape[0], 1e-5,
+    lib = ctypes.CDLL(str(MXU_CONTROL))
+    P, N = ctypes.c_void_p, ctypes.c_int
+    lib.dipole_field_mma_chunks.restype = N
+    lib.dipole_field_mma_chunks.argtypes = [N, N]
+    fn = getattr(lib, f"dipole_{name}")
+    fn.restype = N
+    fn.argtypes = [P, N, P, N, ctypes.c_float, P, P, P]
+    m, n = s.shape[0], t.shape[0]
+    out = torch.empty((n, 3), dtype=torch.float32, device=t.device)
+    partial = torch.empty(lib.dipole_field_mma_chunks(m, n) * n * 3,
+                          dtype=torch.float32, device=t.device)
+    err = fn(s.data_ptr(), m, t.data_ptr(), n, 1e-5, partial.data_ptr(),
              out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     require(err == 0, f"{name} control: CUDA error {err}")
     return out
@@ -1989,22 +1997,41 @@ def phase_main_path_mxu(launches) -> dict:
     return res
 
 
-def phase_timing_mxu(tool: dict, plain_ms: dict) -> dict:
+def _mxu_panel(dev):
+    from dipole_tpu_torch.tools import mxu_field_experiment as mxu
+
+    src, tgt, _ = mxu.tool_data(*MXU_SHAPE)
+    return torch.as_tensor(src, device=dev), torch.as_tensor(tgt, device=dev)
+
+
+def phase_timing_mxu(tool: dict, plain_ms: dict, dev) -> dict:
     """Rows 11-12 at the tool's shape: each kernel's ms from the tool's run
-    (best of 5 by CUDA events), its plain version's from the checks phase,
-    and its bound: the CUDA-core pair math at the fp32 peak against the
-    3xTF32 products at the TF32 peak."""
+    (best of 5 by CUDA events) and by the profiler's device time (both of
+    its kernels), field.cu's device time at the same panel and the ratio,
+    its plain version's ms from the checks phase, and its bound: the
+    CUDA-core pair math at the fp32 peak against the 3xTF32 products at the
+    TF32 peak."""
+    from dipole_tpu_torch.ops import fields_cuda
+
     n_tgt, n_src = MXU_SHAPE
     pairs = n_tgt * n_src
+    s, t = _mxu_panel(dev)
+    field_ms = profiled_ms(lambda: fields_cuda.field_grad(s, t, 1e-5),
+                           ("field_partial", "field_finish"), 5)
     res = {}
     for name, (cuda_ops, tc_ops) in OPS_MXU.items():
         b = bound_ms(24 * n_src + 12 * n_tgt + 12 * n_tgt, cuda_ops * pairs,
                      TF32_PASSES * tc_ops * pairs)
+        fn = getattr(fields_cuda, name)
+        prof = profiled_ms(lambda: fn(s, t, 1e-5),
+                           ("field_mma_partial", "field_finish"), 5)
         res[name] = dict(shape=f"{n_tgt} targets x {n_src} sources",
                          ms=tool["ms"][name.removeprefix("field_")],
+                         profiled_ms=prof, over_field_cu=prof / field_ms,
                          plain_ms=plain_ms[name], bound_ms=b[0], bound_by=b[1])
     emit({"phase": "timing", "mxu_kernels": res,
-          "dipole_field_at_tool_shape_ms": tool["ms"]["current"]})
+          "dipole_field_at_tool_shape_ms": tool["ms"]["current"],
+          "dipole_field_at_tool_shape_profiled_ms": field_ms})
     return res
 
 
@@ -2041,7 +2068,7 @@ def main(argv) -> int:
     timing = phase_timing(gt10, gt180, dev)
     timing.update(phase_timing_patches(hand_out, hand180, lion, dev))
     timing.update(phase_timing_xie(gt10, gt30, dev))
-    timing.update(phase_timing_mxu(tool, mxu_plain_ms))
+    timing.update(phase_timing_mxu(tool, mxu_plain_ms, dev))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

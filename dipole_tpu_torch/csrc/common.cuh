@@ -176,20 +176,52 @@ __device__ __forceinline__ void stage_sources(const float* __restrict__ src,
 }
 
 // (chunks, sources a chunk) of the grid for n_src sources at n_tgt
-// targets: chunks of at most kMaxChunk sources, and more of at least
-// kMinChunk where fewer target blocks than kFillBlocks would leave SMs idle.
-inline void plan(int n_src, int n_tgt, int* n_chunks, int* chunk) {
+// targets, `targets` a block: chunks of at most max_chunk sources, and more
+// of at least min_chunk where fewer target blocks than kFillBlocks would
+// leave SMs idle.
+inline void plan(int n_src, int n_tgt, int* n_chunks, int* chunk,
+                 int targets = kTargets, int max_chunk = kMaxChunk,
+                 int min_chunk = kMinChunk) {
   if (n_src <= 0) {
     *n_chunks = 0;
     *chunk = 1;
     return;
   }
-  const int t_blocks = max(1, (n_tgt + kTargets - 1) / kTargets);
+  const int t_blocks = max(1, (n_tgt + targets - 1) / targets);
   const int fill = min((kFillBlocks + t_blocks - 1) / t_blocks,
-                       (n_src + kMinChunk - 1) / kMinChunk);
-  const int want = max((n_src + kMaxChunk - 1) / kMaxChunk, fill);
+                       (n_src + min_chunk - 1) / min_chunk);
+  const int want = max((n_src + max_chunk - 1) / max_chunk, fill);
   *chunk = (n_src + want - 1) / want;
   *n_chunks = (n_src + *chunk - 1) / *chunk;
+}
+
+// out (n_tgt, 3) = the partial fields (n_chunks, n_tgt, 3) summed over the
+// chunks in chunk order, each total scrubbed if kScrub (csrc/field.cu) and
+// left as it is if not (csrc/field_mma.cu).
+template <bool kScrub>
+__global__ void field_finish(const float* __restrict__ partial, int n_chunks,
+                             int n_tgt, float* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_tgt) return;
+  float e[3] = {0.f, 0.f, 0.f};
+  for (int c = 0; c < n_chunks; ++c) {
+    const float* p = partial + ((size_t)c * n_tgt + t) * 3;
+    e[0] += p[0];
+    e[1] += p[1];
+    e[2] += p[2];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[3 * (size_t)t + k] = kScrub ? scrub(e[k]) : e[k];
+}
+
+// Launches field_finish<kScrub> on stream, unless a single chunk wrote out
+// itself.
+template <bool kScrub>
+inline void finish_field(const float* partial, int n_chunks, int n_tgt,
+                         float* out, cudaStream_t stream) {
+  if (n_chunks == 1) return;
+  field_finish<kScrub><<<(n_tgt + 127) / 128, 128, 0, stream>>>(
+      partial, n_chunks, n_tgt, out);
 }
 
 }  // namespace chunked

@@ -28,8 +28,9 @@
 // lion: 81 x 68), and, where the target blocks are
 // few, as many chunks of at least kMinChunk sources as bring the grid to
 // kFillBlocks (a graph_dipole edge of 505 x 499: 16 chunks of 32). Each
-// block writes its chunk's partial field and field_finish adds the chunks
-// in order, then scrubs: no atomics, the same total on every run. A single
+// block writes its chunk's partial field and common.cuh's
+// chunked::field_finish (shared with csrc/field_mma.cu) adds the chunks in
+// order, then scrubs: no atomics, the same total on every run. A single
 // chunk writes the scrubbed total itself, in one launch. Measured against
 // this (PERF.md): 8 targets a thread tie at the transfer and lose 6% at the
 // lion and 58% at the edge; chunks of at least 128 at the edge take 2.9x
@@ -127,21 +128,6 @@ field_partial(const float* __restrict__ src, int n_src, int chunk,
   }
 }
 
-__global__ void field_finish(const float* __restrict__ partial, int n_chunks,
-                             int n_tgt, float* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_tgt) return;
-  float e[3] = {0.f, 0.f, 0.f};
-  for (int c = 0; c < n_chunks; ++c) {
-    const float* p = partial + ((size_t)c * n_tgt + t) * 3;
-    e[0] += p[0];
-    e[1] += p[1];
-    e[2] += p[2];
-  }
-#pragma unroll
-  for (int k = 0; k < 3; ++k) out[3 * (size_t)t + k] = scrub(e[k]);
-}
-
 }  // namespace
 
 extern "C" {
@@ -169,10 +155,7 @@ int dipole_field(const float* src, int n_src, const float* tgt, int n_tgt,
     field_partial<<<dim3(t_blocks, n_chunks), kThreads, 0, stream>>>(
         src, n_src, chunk, tgt, n_tgt, eps, partial, out);
   }
-  if (n_chunks != 1) {
-    field_finish<<<(n_tgt + 127) / 128, 128, 0, stream>>>(partial, n_chunks,
-                                                          n_tgt, out);
-  }
+  chunked::finish_field<true>(partial, n_chunks, n_tgt, out, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

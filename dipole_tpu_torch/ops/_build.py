@@ -8,7 +8,13 @@ plain C interface (no PyTorch headers, so a build takes seconds), for sm_90a:
 
 -fmad=false keeps every multiply and add separately rounded, as in the
 plain torch versions, so a kernel can be held to its plain version bit for
-bit; --use_fast_math is never used (sqrtf and / stay IEEE). The libraries go
+bit; --use_fast_math is never used, so sqrtf and / stay IEEE where a kernel
+writes them: the two interaction matrices (imatrix.cu) and the column
+greedy's entries (greedy.cu), which are held bit-equal. group.cu, field.cu,
+potential.cu and field_mma.cu take common.cuh's approximate root,
+reciprocal and reciprocal root (sqrt.approx, rcp.approx, rsqrt.approx) by
+name, with explicit multiply-adds, and are held within stated tolerances.
+The libraries go
 to `dipole_tpu_torch/_build/<hash>/`, keyed by a hash of the sources and
 flags, on first use; all nvcc processes start together. A failed build
 raises; there is no fallback.

@@ -254,14 +254,17 @@ def _field_mma(name: str, sources: torch.Tensor, targets: torch.Tensor,
     check_tensor(targets, "targets", 3)
     if sources.device != targets.device:
         raise ValueError("sources and targets on different devices")
-    lib, fn = _build.entry("field_mma", f"dipole_{name}",
-                           [_P, _N, _P, _N, ctypes.c_float, _P, _P])
+    lib, chunks = _build.entry("field_mma", "dipole_field_mma_chunks", [_N, _N])
+    _, fn = _build.entry("field_mma", f"dipole_{name}",
+                         [_P, _N, _P, _N, ctypes.c_float, _P, _P, _P])
     m, t = sources.shape[0], targets.shape[0]
     out = torch.empty((t, 3), dtype=torch.float32, device=sources.device)
+    partial = torch.empty(chunks(m, t) * t * 3, dtype=torch.float32,
+                          device=sources.device)
     with torch.cuda.device(sources.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(sources.data_ptr(), m, targets.data_ptr(), t, float(eps),
-                 out.data_ptr(), stream)
+                 partial.data_ptr(), out.data_ptr(), stream)
     _build.check(lib, err, f"dipole_{name}")
     LAUNCHES[name] += 1
     return out
@@ -270,8 +273,11 @@ def _field_mma(name: str, sources: torch.Tensor, targets: torch.Tensor,
 def field_mxu_exact(sources: torch.Tensor, targets: torch.Tensor,
                     eps: float) -> torch.Tensor:
     """E (T, 3) at targets (T, 3) from dipole sources (M, 6), the pair math
-    as csrc/field.cu and the sums as 3xTF32 tensor-core products, not
-    scrubbed — on the card, by csrc/field_mma.cu."""
+    as csrc/field.cu and the sums as 3xTF32 tensor-core products
+    (mma.sync), not scrubbed — on the card, by csrc/field_mma.cu. The
+    source axis is cut into chunks that fill the card; their partial
+    fields (scratch of dipole_field_mma_chunks(M, T) x T x 3 floats, none
+    for a single chunk) are added in order: no atomics."""
     return _field_mma("field_mxu_exact", sources, targets, eps)
 
 

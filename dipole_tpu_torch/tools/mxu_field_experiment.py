@@ -11,7 +11,9 @@ the field with its sums on the TPU's matrix unit):
                  from two K=3 products (cancellation for near pairs), zero
                  test r^2 <= 0, r = sqrt(safe_r2)
 
-On the card both run in csrc/field_mma.cu (3xTF32 mma.sync); "current" is
+On the card both run in csrc/field_mma.cu (3xTF32 mma.sync.m16n8k8: a and b
+on the CUDA cores with csrc/field.cu's approximate roots, two products a
+3xTF32 one; wgmma measured slower, PERF.md); "current" is
 `ops.fields.field_grad`, csrc/field.cu. The tool prints GPairs/s of each
 variant (best of 5 after one warm-up: CUDA events on the card, the host
 clock on the CPU), then the relative max difference and the sign agreement

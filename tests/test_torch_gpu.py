@@ -751,26 +751,27 @@ def test_graph_dipole_on_card_near_cpu(cuda_device):
     assert abs(sign_agreement(out, gt) - sign_agreement(ref, gt)) <= 0.02
 
 
-def _mxu_data(n_tgt, n_src, apart=0.0):
+def _mxu_data(n_tgt, n_src, apart=0.0, dev="cpu"):
     """The tool's data; with `apart`, targets closer than that to any source
     are moved away (the expansion's cancellation is documented behaviour
-    there, not something to match)."""
+    there, not something to match), the distances taken on `dev` in blocks
+    of targets."""
     src, tgt, _ = mxu.tool_data(n_tgt, n_src)
     if apart:
-        d = torch.cdist(torch.as_tensor(tgt, dtype=torch.float64),
-                        torch.as_tensor(src[:, :3], dtype=torch.float64)).min(1).values
-        tgt[(d < apart).numpy()] += 10.0
+        s = torch.as_tensor(src[:, :3], dtype=torch.float64, device=dev)
+        t = torch.as_tensor(tgt, dtype=torch.float64, device=dev)
+        d = torch.cat([torch.cdist(t[i:i + 16384], s).min(1).values
+                       for i in range(0, n_tgt, 16384)])
+        tgt[(d < apart).cpu().numpy()] += 10.0
     return src, tgt
 
 
-@pytest.mark.parametrize("kernel", ["exact", "expansion"])
-@pytest.mark.parametrize("n_tgt,n_src", [(16, 8), (1, 1), (17, 9), (4096, 3001),
-                                         (777, 20000)])
-def test_mxu_field_kernels_match_plain(cuda_device, kernel, n_tgt, n_src):
-    src, tgt = _mxu_data(n_tgt, n_src, apart=0.02 if kernel == "expansion" else 0.0)
-    s = torch.as_tensor(src, device=cuda_device)
-    t = torch.as_tensor(tgt, device=cuda_device)
-    if kernel == "exact" and n_tgt > 16:
+def _check_mxu_kernel(dev, kernel, n_tgt, n_src):
+    src, tgt = _mxu_data(n_tgt, n_src, apart=0.02 if kernel == "expansion" else 0.0,
+                         dev=dev)
+    s = torch.as_tensor(src, device=dev)
+    t = torch.as_tensor(tgt, device=dev)
+    if kernel == "exact" and n_tgt > 16 and n_src > 8:
         t[0] = s[3, :3]                          # a target on a source
         s[n_src - 4:] = s[:4]                    # duplicate sources
     got = getattr(fields_cuda, f"field_mxu_{kernel}")(s, t, 1e-5)
@@ -782,6 +783,52 @@ def test_mxu_field_kernels_match_plain(cuda_device, kernel, n_tgt, n_src):
     scale = mxu.tolerance_scale(s, t)
     assert bool(torch.isfinite(got).all())
     assert bool(((got - want).abs().double() <= rtol * scale[:, None]).all())
+
+
+# the edges of csrc/field_mma.cu's tiles and stages: targets in tiles of 16,
+# warps of 32 and blocks of 256 (63-65: the second warp's edge; 255-257 and
+# 1025: a block's), sources in k-steps of 8 and stages of 128,
+# double-buffered (129: one past a stage; 257: one past both buffers)
+@pytest.mark.parametrize("kernel", ["exact", "expansion"])
+@pytest.mark.parametrize("n_tgt,n_src", [(16, 8), (1, 1), (17, 9), (4096, 3001),
+                                         (777, 20000), (63, 1), (64, 7), (65, 8),
+                                         (1025, 9), (255, 512), (256, 513),
+                                         (257, 129), (1025, 257)])
+def test_mxu_field_kernels_match_plain(cuda_device, kernel, n_tgt, n_src):
+    _check_mxu_kernel(cuda_device, kernel, n_tgt, n_src)
+
+
+def _field_mma_chunks(n_src, n_tgt):
+    import ctypes
+
+    from dipole_tpu_torch.ops import _build
+
+    _, chunks = _build.entry("field_mma", "dipole_field_mma_chunks",
+                             [ctypes.c_int, ctypes.c_int])
+    return chunks(n_src, n_tgt)
+
+
+# both sides of the source axis's cut (common.cuh's chunked::plan): one
+# chunk, written straight to the output, then two, added by the finish
+# kernel; where few target blocks cut the sources finer (4096 targets) and
+# where a chunk's most sources do (300000 targets)
+@pytest.mark.parametrize("kernel", ["exact", "expansion"])
+@pytest.mark.parametrize("n_tgt,n_src", [(4096, 128), (300000, 8192)])
+def test_mxu_field_kernels_across_the_source_cut(cuda_device, kernel, n_tgt, n_src):
+    assert _field_mma_chunks(n_src, n_tgt) == 0
+    assert _field_mma_chunks(n_src + 1, n_tgt) == 2
+    for m in (n_src, n_src + 1):
+        _check_mxu_kernel(cuda_device, kernel, n_tgt, m)
+
+
+@pytest.mark.parametrize("kernel", ["exact", "expansion"])
+def test_mxu_field_kernels_repeat_bit_for_bit(cuda_device, kernel):
+    src, tgt = _mxu_data(4096, 20000)
+    s = torch.as_tensor(src, device=cuda_device)
+    t = torch.as_tensor(tgt, device=cuda_device)
+    fn = getattr(fields_cuda, f"field_mxu_{kernel}")
+    assert _field_mma_chunks(20000, 4096) > 1
+    assert torch.equal(fn(s, t, 1e-5), fn(s, t, 1e-5))
 
 
 def test_mxu_tool_takes_kernels_only(cuda_device):
