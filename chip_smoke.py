@@ -61,6 +61,16 @@ Phases, one JSON line each:
                 orders shorter than N and orders over seven indices:
                 identical decisions, recorded interactions within 1e-6 of
                 sum |I w|;
+                the batched column greedy (the server's micro-batch) at
+                B = 1, 2, 3 and 8, mixed sizes from one block to 30000
+                points, the tie clouds beside others, and a batch cut into
+                several launches, each lane bit-equal to the launch over its
+                cloud alone and to the plain version; the batched replay at
+                B = 1, 2, 3 and 8 clouds of unequal sizes with orders of
+                unequal lengths (repeats, an empty set), xie and dipole,
+                and 60 lanes (more than one blocked loop takes), each lane
+                bit-equal to the replay of its cloud alone and deciding as
+                the plain version;
                 the diffuse replay and the diffuse xie, card against CPU;
                 the tensor-core field variants (csrc/field_mma.cu) on the
                 tool's data at 4096 x 3001 and 777 x 20000, per target
@@ -96,7 +106,22 @@ Phases, one JSON line each:
                 (grid, 10 parts) through its CLI on the 10000-point cloud
                 written to a .ply; GT sign agreement >= 0.95 each; orient
                 xie and tree_xie at 2000 points give the same signs on the
-                card as on the CPU. Then the tool `python -m
+                card as on the CPU. Then the serve phase: the port's
+                threaded server (serve/server_para.Server, micro-batching
+                on, a 50 ms window, then a second server at its default
+                10 ms) on a loopback port, on the card: 8
+                concurrent simple_estimate clients (8 different scrambled
+                10000-point ellipsoids, xyz only), then 8 concurrent
+                tree_xie clients at 10000 points and one at 30000 (the
+                admission cap); each wave at 50 ms coalesces (fewer batches
+                than device jobs; at 10 ms they are reported) and launches
+                the batched greedy or replay;
+                simple_estimate replies equal orient_clouds_batched here on
+                the same prepared clouds, GT agreement >= 0.99; tree_xie
+                replies equal the serial handler, GT agreement >= 0.95; one
+                line a wave: its wall seconds, the same requests through
+                dispatch one after another, jobs per batch, p50 and max
+                latency of a request. Then the tool `python -m
                 dipole_tpu_torch.tools.mxu_field_experiment` through its
                 main() at 65536 x 262144: GPairs/s of "current" (field.cu)
                 and both tensor-core kernels, their rel max diff and sign
@@ -152,7 +177,12 @@ Phases, one JSON line each:
                 device time at the same panel, their plain versions' ms
                 from the checks, their bounds counting the CUDA-core pair
                 math at the fp32 peak against the 3xTF32 products at the
-                TF32 peak
+                TF32 peak. The batched entries at the waves' shape: one
+                batched launch against B single launches at B = 2, 4 and 8
+                clouds of 10000 points (the greedy; the replay with 3
+                orders a cloud), the plain versions a lane after another at
+                B = 8, the greedy's bound by operations with the full-grid
+                fit's step floor beside it, the replay's by bytes
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero before the
@@ -164,6 +194,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -234,6 +265,10 @@ KERNELS = {
                         "tools/mxu_field_experiment.py:26"),
     "field_mxu_expansion": ("dipole_tpu_torch/csrc/field_mma.cu",
                             "tools/mxu_field_experiment.py:67"),
+    "greedy_columns_batched": ("dipole_tpu_torch/csrc/greedy.cu",
+                               "dipole_tpu/ops/propagate.py:213"),
+    "replay_batched": ("dipole_tpu_torch/csrc/replay.cu",
+                       "dipole_tpu/ops/propagate.py:861"),
 }
 # the profiler's name of the dipole matrix's kernel
 IMATRIX_KERNEL = "DipolePair"
@@ -537,7 +572,62 @@ def phase_checks(cloud180: torch.Tensor, cloud10: np.ndarray) -> dict:
             h = n // 2
             require(torch.equal(ka[:h], ka[h:2 * h]),
                     f"{name}: the duplicated points' acc differ ({what})")
+    errs["greedy_columns_batched"] = check_greedy_batched(cloud180, cloud10, dev)
     return errs
+
+
+def check_greedy_batched(cloud180: torch.Tensor, cloud10: np.ndarray, dev) -> float:
+    """The batched column greedy, each lane against the launch over its
+    cloud alone and against the plain version, bit for bit: B = 1, 2, 3
+    and 8; mixed sizes (one cloud on one block, others up to the server's
+    30000-point cap); the tie clouds of _greedy_launch_cases (a duplicated
+    half, each pair in two blocks) beside others; and a batch planned for 8
+    SMs, cut into several launches (held to the single launches)."""
+    from dipole_tpu_torch.ops import propagate, propagate_cuda
+
+    def cloud(n, seed, ties=False):
+        base = cloud10[:n] if n <= len(cloud10) else cloud180[:n].cpu().numpy()
+        pc = scramble(base, seed)
+        if ties:
+            pc[n // 2:] = pc[:n // 2]
+        return torch.as_tensor(pc, device=dev)
+
+    cases = [("B=1", [2000], {}, True), ("B=2", [1500, 5000], {}, True),
+             ("B=3", [300, 4096, 4097], {}, True),
+             ("B=8", [900 + 100 * b for b in range(8)], {}, True),
+             ("mixed sizes", [3000, 4097, 12000, 30000], {}, True),
+             ("ties across blocks", [6000, 2500, 6000], {}, True),
+             ("several launches", [10000, 9000, 6000, 1000], {"_sms": 4}, False)]
+    for label, sizes, kw, with_plain in cases:
+        pts = [cloud(n, SEED + 300 + b, ties=label.startswith("ties") and b != 1)
+               for b, n in enumerate(sizes)]
+        starts = [(13 * b + 7) % n for b, n in enumerate(sizes)]
+        t0 = time.perf_counter()
+        got = propagate_cuda.greedy_columns_batched(pts, starts, 1e-6, **kw)
+        launches = propagate_cuda.last_launch()["launches"]
+        single = [propagate_cuda.greedy_columns(p, s0, 1e-6) for p, s0 in zip(pts, starts)]
+        plain = ([propagate.greedy_columns_plain(p, s0, 1e-6) for p, s0 in zip(pts, starts)]
+                 if with_plain else [None] * len(pts))
+        torch.cuda.synchronize()
+        lanes = []
+        for p, (a, sg), one, pl in zip(pts, got, single, plain):
+            same = torch.equal(a, one[0]) and torch.equal(sg, one[1])
+            same_plain = pl is None or (torch.equal(a, pl[0]) and torch.equal(sg, pl[1]))
+            lanes.append({"n": len(p), "bit_equal_single": same,
+                          "bit_equal_plain": same_plain if pl is not None else None})
+            require(same and same_plain, f"greedy_columns_batched: lane of {len(p)} "
+                                         f"points differs ({label})")
+            require(bool((sg.abs() == 1).all()), "greedy_columns_batched: a sign is not +-1")
+        if label.startswith("ties"):
+            for (a, _), n in zip(got, sizes):
+                h = n // 2
+                require(n == 2500 or torch.equal(a[:h], a[h:]),
+                        "greedy_columns_batched: the duplicated points' acc differ")
+        emit({"phase": "check", "kernel": "greedy_columns_batched", "case": label,
+              "sizes": sizes, "launches": launches, "lanes": lanes,
+              "seconds": time.perf_counter() - t0})
+        require((len(launches) > 1) == bool(kw), f"greedy_columns_batched: {launches}")
+    return 0.0
 
 
 def _greedy_launch_cases(cloud10: np.ndarray, dev) -> list:
@@ -1619,7 +1709,69 @@ def phase_checks_xie(gt10: np.ndarray, dev) -> dict:
                     dict(n=n, T=3, steps=o.shape[1], orders=kind, matrix=kernel,
                          knn_mask=masked, points_weight=True),
                     I, orders, knn if masked else None, colw))
+    errs["replay_batched"] = check_replay_batched(gt10, dev)
     return errs
+
+
+def _replay_lane_vs_plain(what, I, o, w, inter, wp, ip) -> float:
+    """A batched replay's lane (one cloud's orders) against the plain
+    version's: w equal, flips identical, inter within 1e-6 of sum |I w|.
+    Returns that relative error."""
+    rel = _rel_inter(inter, ip, _replay_scale(I, o, None, None, wp))
+    require(torch.equal(w, wp) and torch.equal(inter < 0, ip < 0) and rel <= 1e-6,
+            f"replay_batched: lane off its plain version ({what}; off by {rel} of "
+            "sum |I w|)")
+    return rel
+
+
+def check_replay_batched(gt10: np.ndarray, dev) -> float:
+    """The batched replay, each lane against the replay of its cloud alone
+    (w and inter bit-equal) and against the plain version (w equal, flips
+    identical, inter within 1e-6 of sum |I w|): B = 1, 2, 3 and 8 clouds of
+    unequal sizes with orders of unequal lengths (one set over repeated
+    indices, one of 2 orders, one empty), xie and dipole matrices; and 20
+    clouds of 3 orders, 60 lanes, more than one blocked loop takes."""
+    from dipole_tpu_torch.ops import fields, propagate, propagate_cuda
+    from dipole_tpu_torch.utils.io import Transform
+
+    r = np.random.default_rng(SEED + 40)
+    err = 0.0
+    cases = {"B=1": [(1500, 3, 1500)], "B=2": [(1500, 3, 1500), (700, 3, 333)],
+             "B=3": [(1200, 3, 2400), (700, 2, 700), (129, 3, 0)],
+             "B=8": [(600 + 100 * b, 3, 600 + 70 * b) for b in range(8)],
+             "60 lanes": [(300, 3, 300)] * 20}
+    for label, spec in cases.items():
+        for kernel in ("xie", "dipole") if label != "60 lanes" else ("xie",):
+            mats, orders = [], []
+            for b, (n, T, steps) in enumerate(spec):
+                at = (b * 700) % (len(gt10) - n)
+                pc = torch.as_tensor(Transform.trans(scramble(gt10[at:at + n],
+                                                              SEED + 41 + b))[0], device=dev)
+                mats.append(fields.xie_interaction_matrix(pc) if kernel == "xie"
+                            else fields.dipole_interaction_matrix(pc))
+                o = np.stack([np.concatenate([r.permutation(n), r.permutation(n)])[:steps]
+                              for _ in range(T)]).reshape(T, steps)
+                if label == "B=3" and b == 0:
+                    o[:, 1500:1600] = o[:, 40:140]          # visits again
+                orders.append(torch.as_tensor(o, device=dev))
+            got = propagate_cuda.replay_batched(mats, orders)
+            lanes = []
+            for I, o, (w, inter) in zip(mats, orders, got):
+                w1, i1 = propagate_cuda.replay(I, o)
+                wp, ip = propagate.replay_plain(I, o)
+                torch.cuda.synchronize()
+                same = torch.equal(w, w1) and torch.equal(inter, i1)
+                require(same, f"replay_batched: lane differs from its single replay "
+                              f"({label}, {kernel})")
+                rel = _replay_lane_vs_plain(f"{label}, {kernel}", I, o, w, inter, wp, ip)
+                lanes.append({"n": I.shape[0], "T": o.shape[0], "steps": o.shape[1],
+                              "bit_equal_single": same, "decisions_equal_plain": True,
+                              "max_err_over_sum_abs": rel})
+                err = max(err, float((inter - ip).abs().max()) if inter.numel() else 0.0)
+            emit({"phase": "check", "kernel": "replay_batched", "case": label,
+                  "matrix": kernel, "lanes": lanes})
+            del mats
+    return err
 
 
 def _xie_greedy_cases(gt10: np.ndarray, dev) -> list:
@@ -1705,6 +1857,319 @@ def phase_main_path_xie(gt10, gt30, launches) -> dict:
         require(same >= 0.999, f"{method}: card and CPU disagree on {1 - same:.6f} "
                                "of signs")
     return agree
+
+
+SERVE_N = 10000           # tools/serve_bench.py's request size
+SERVE_CAP_N = 30000       # the server's admission cap, server_para.MAX_PTS
+SERVE_WINDOW_S = 0.05     # the batch leader's window (--microbatch_window_ms 50)
+SERVE_XIE = {"max_nn": 30, "eps": 1e-2, "diffuse": False, "times": 3,
+             "knn_mask": -1, "C": 3}
+
+
+def _serve_clients(port, fn, clouds, cfg):
+    """One client thread a cloud, all started together: (replies, seconds
+    of each request, wall seconds of the wave). A client error fails."""
+    from dipole_tpu_torch.serve import protocol
+
+    out, secs, errors = {}, {}, []
+
+    def client(i):
+        t0 = time.perf_counter()
+        try:
+            out[i] = protocol.request("127.0.0.1", port, fn, clouds[i], dict(cfg))
+        except Exception as e:  # noqa: BLE001 — reported and failed below
+            errors.append(f"request {i}: {e!r}")
+        secs[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(clouds))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    require(not errors and len(out) == len(clouds), f"serve {fn}: {errors}")
+    return [out[i] for i in range(len(clouds))], [secs[i] for i in range(len(clouds))], wall
+
+
+def _serve_wave(label, srv, fn, clouds, cfg, path_kernels, launches):
+    """One wave of concurrent requests through the live server, the launch
+    counts reset just before it and read just after; then the same requests
+    one after another through handlers.dispatch without a batcher."""
+    from dipole_tpu_torch.serve import handlers
+
+    b = srv.batcher
+    jobs0, batches0 = b.jobs_run, b.batches_run
+    torch.cuda.synchronize()
+    _reset_counts()
+    replies, secs, wall = _serve_clients(srv.port, fn, clouds, cfg)
+    torch.cuda.synchronize()
+    counts, plain = _read_counts()
+    RUN_COUNTS[label] = counts
+    jobs, batches = b.jobs_run - jobs0, b.batches_run - batches0
+    t0 = time.perf_counter()
+    serial = [handlers.dispatch(fn, xyz, dict(cfg), device="cuda") for xyz in clouds]
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    line = {"phase": "serve", "run": label, "function": fn, "requests": len(clouds),
+            "n": [len(c) for c in clouds], "wave_seconds": wall,
+            "serial_dispatch_seconds": serial_s, "device_jobs": jobs,
+            "batches": batches, "jobs_per_batch": jobs / max(batches, 1),
+            "latency_p50_s": float(np.median(secs)), "latency_max_s": float(max(secs)),
+            "launches": counts, "plain_cuda_calls": plain}
+    for name in path_kernels:
+        require(counts[name] > 0, f"{label}: kernel {name} not launched")
+        launches[name] = launches.get(name, 0) + counts[name]
+    require(not any(plain.values()), f"{label}: plain version called on CUDA: {plain}")
+    return replies, serial, line
+
+
+def phase_serve(launches) -> dict:
+    """The port's threaded server (server_para.Server, micro-batching on) on
+    the card, on a loopback port: a wave of 8 concurrent simple_estimate
+    requests (diffuse; 8 different scrambled 10000-point ellipsoids, xyz
+    only, seeds SEED + 100..107: tools/serve_bench.py's class), then 8
+    concurrent tree_xie requests at 10000 points and one at 30000 (the
+    admission cap). The waves run twice: with a 50 ms batch window, where
+    they must coalesce (fewer batches than device jobs), the simple_estimate
+    wave first as the server's first requests (its handler threads' first
+    CUDA work) and then again; and on a second server at its default window
+    (--microbatch_window_ms 10), where the batches are reported. Each
+    simple_estimate reply equals orient_clouds_batched run here on the same
+    prepared clouds (the column lanes; or, for a request that ran alone, the
+    tiered greedy of a batch of one) with GT agreement >= 0.99; each
+    tree_xie reply equals the serial handler with GT agreement >= 0.95.
+    Beside each wave, the same requests one after another through
+    handlers.dispatch without a batcher."""
+    gts = [ellipsoid(SERVE_N, SEED + 100 + i) for i in range(8)]
+    clouds = [scramble(g, SEED + 100 + i)[:, :3].astype(np.float64)
+              for i, g in enumerate(gts)]
+    gt30 = ellipsoid(SERVE_CAP_N, SEED + 108)
+    cap = [scramble(gt30, SEED + 108)[:, :3].astype(np.float64)]
+    res = _serve_waves(SERVE_WINDOW_S, "", clouds, gts, cap, gt30, launches)
+    res.update(_serve_waves(None, "_default_window", clouds, gts, cap, gt30, launches))
+    res["host_stages"] = _serve_host_stages(clouds)
+    return res
+
+
+def _serve_waves(window_s, tag, clouds, gts, cap, gt30, launches) -> dict:
+    """The waves of phase_serve through one server, its batch window
+    window_s (None: the server's default). With a window given, the
+    simple_estimate wave runs twice (the server's first requests, then
+    again) and every wave must coalesce."""
+    import inspect
+    import socket
+    import tempfile
+
+    from dipole_tpu_torch.ops import propagate
+    from dipole_tpu_torch.ops.metrics import sign_agreement
+    from dipole_tpu_torch.serve import handlers, protocol
+    from dipole_tpu_torch.serve.server_para import Server
+
+    strict = window_s is not None
+    if window_s is None:
+        window_s = inspect.signature(Server).parameters["microbatch_window_s"].default
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    res = {}
+
+    def coalesced(line, what):
+        line["window_s"] = window_s
+        emit(line)
+        if strict:
+            require(line["batches"] < line["device_jobs"],
+                    f"{what}: no coalescing ({line['batches']} batches for "
+                    f"{line['device_jobs']} jobs)")
+
+    with tempfile.TemporaryDirectory() as logs:
+        srv = Server(host="127.0.0.1", port=port, log_dir=logs,
+                     microbatch_window_s=window_s, device="cuda")
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            for _ in range(200):        # up: a degenerate request (no device work)
+                try:
+                    protocol.request("127.0.0.1", port, "simple_estimate",
+                                     np.zeros((5, 3)), {}, timeout=10)
+                    break
+                except OSError:
+                    time.sleep(0.05)
+            dev = torch.device("cuda")
+            # wave 1: simple_estimate (with a window given: the server's
+            # first requests, then again)
+            if strict:
+                first = _serve_wave(f"serve_simple_estimate_8x10k_first{tag}", srv,
+                                    "simple_estimate", clouds, {"diffuse": True},
+                                    ("greedy_columns_batched",), launches)[2]
+                coalesced(first, "serve simple_estimate (first)")
+                res[f"simple_estimate_first{tag}"] = first
+            # a request that runs alone takes the tiered greedy, not the batched one
+            replies, serial, line = _serve_wave(
+                f"serve_simple_estimate_8x10k{tag}", srv, "simple_estimate", clouds,
+                {"diffuse": True},
+                ("greedy_columns_batched", "dipole_potential") if strict
+                else ("dipole_potential",), launches)
+            prepped = [handlers._prep(xyz, 30, dev) for xyz in clouds]
+            lanes = propagate.orient_clouds_batched([p for p, _ in prepped], diffuse=True,
+                                                    device=dev)
+            agree, alone = [], 0
+            for i, (out, (pc, tr)) in enumerate(zip(replies, prepped)):
+                want = tr.inverse(lanes[i]).astype(np.float64)
+                if not np.array_equal(out, want):
+                    one = propagate.orient_clouds_batched([pc], diffuse=True, device=dev)
+                    require(np.array_equal(out, tr.inverse(one[0]).astype(np.float64)),
+                            f"serve simple_estimate: reply {i} equals neither the "
+                            "batched core's lane nor a batch of one")
+                    alone += 1
+                agree.append(sign_agreement(out, gts[i]))
+            line.update(gt_sign_agreement_min=min(agree), replies_from_a_batch_of_one=alone,
+                        serial_gt_sign_agreement_min=min(
+                            sign_agreement(o, g) for o, g in zip(serial, gts)))
+            coalesced(line, "serve simple_estimate")
+            require(min(agree) >= 0.99, f"serve simple_estimate: GT agreement {min(agree)}")
+            res[f"simple_estimate{tag}"] = line
+            # wave 2: tree_xie at 10k, then one request at the admission cap
+            replies, serial, line = _serve_wave(
+                f"serve_tree_xie_8x10k{tag}", srv, "tree_xie_propagation", clouds,
+                SERVE_XIE, ("xie_imatrix", "replay_batched", "dipole_potential"), launches)
+            agree = [sign_agreement(o, g) for o, g in zip(replies, gts)]
+            same = [np.array_equal(o, w) for o, w in zip(replies, serial)]
+            line.update(gt_sign_agreement_min=min(agree), equal_to_serial=all(same))
+            coalesced(line, "serve tree_xie")
+            require(all(same), f"serve tree_xie: replies differ from the serial handler "
+                               f"({same})")
+            require(min(agree) >= 0.95, f"serve tree_xie: GT agreement {min(agree)}")
+            res[f"tree_xie{tag}"] = line
+            replies, serial, line = _serve_wave(
+                f"serve_tree_xie_30k{tag}", srv, "tree_xie_propagation", cap, SERVE_XIE,
+                ("xie_imatrix", "replay_batched", "dipole_potential"), launches)
+            a = sign_agreement(replies[0], gt30)
+            line.update(gt_sign_agreement_min=a, window_s=window_s,
+                        equal_to_serial=bool(np.array_equal(replies[0], serial[0])))
+            emit(line)
+            require(line["equal_to_serial"], "serve tree_xie 30k: reply differs from the "
+                                             "serial handler")
+            require(a >= 0.95, f"serve tree_xie 30k: GT agreement {a}")
+            res[f"tree_xie_30k{tag}"] = line
+        finally:
+            srv.stop()
+            th.join(10)
+    return res
+
+
+def _serve_host_stages(clouds) -> dict:
+    """The waves' host stages alone, the 8 clouds one after another and in
+    8 threads together, as the handler threads run them: normal estimation
+    and the transform (handlers._prep), and tree_xie's EMST and BFS orders."""
+    from dipole_tpu_torch.ops import propagate
+    from dipole_tpu_torch.serve import handlers
+
+    dev = torch.device("cuda")
+    prepped = [None] * len(clouds)
+
+    def prep(i):
+        prepped[i] = handlers._prep(clouds[i], 30, dev)[0]
+        torch.cuda.synchronize()
+
+    def orders(i):
+        propagate.bfs_orders(prepped[i], 0, times=3)
+
+    line = {"phase": "serve", "run": "host_stages", "requests": len(clouds)}
+    for name, fn in (("prep", prep), ("bfs_orders", orders)):
+        t0 = time.perf_counter()
+        for i in range(len(clouds)):
+            fn(i)
+        line[f"{name}_serial_s"] = time.perf_counter() - t0
+        threads = [threading.Thread(target=fn, args=(i,)) for i in range(len(clouds))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        line[f"{name}_threads_s"] = time.perf_counter() - t0
+    emit(line)
+    return line
+
+
+def phase_timing_serve(dev, full_grid_a_us: float) -> dict:
+    """The batched entries at the waves' shape: one batched launch against
+    B single launches at B = 2, 4 and 8 clouds of 10000 points (CUDA
+    events, in turns), the B = 8 lanes held to the single launches and to
+    the plain versions (a lane after another, timed once): the greedy's
+    acc and sign bit-equal, the replay's w equal, its flips identical and
+    inter within 1e-6 of sum |I w|; the greedy's bound
+    by operations, with the exchange's time a step on 132 blocks (the
+    full-grid fit's intercept) times the steps beside it, the replay's by
+    bytes."""
+    from dipole_tpu_torch.ops import fields, propagate, propagate_cuda
+    from dipole_tpu_torch.serve import handlers
+
+    n = SERVE_N
+    prepped = [handlers._prep(scramble(ellipsoid(n, SEED + 100 + i), SEED + 100 + i)
+                              [:, :3], 30, dev)[0] for i in range(8)]
+    pts = [torch.as_tensor(p, device=dev) for p in prepped]
+    res = {}
+    greedy = {"B": {}}
+    for B in (2, 4, 8):
+        p = pts[:B]
+        batched = cuda_ms(lambda: propagate_cuda.greedy_columns_batched(p, [0] * B, 1e-6),
+                          3, 1)
+        single = cuda_ms(lambda: [propagate_cuda.greedy_columns(q, 0, 1e-6) for q in p],
+                         3, 1)
+        again = cuda_ms(lambda: propagate_cuda.greedy_columns_batched(p, [0] * B, 1e-6),
+                        3, 0)
+        greedy["B"][B] = {"batched_ms": [batched, again], "single_launches_ms": single,
+                          "launches": propagate_cuda.last_launch()["launches"]}
+    got = propagate_cuda.greedy_columns_batched(pts, [0] * 8, 1e-6)
+    for q, (a, sg) in zip(pts, got):
+        one = propagate_cuda.greedy_columns(q, 0, 1e-6)
+        require(torch.equal(a, one[0]) and torch.equal(sg, one[1]),
+                "greedy_columns_batched: a lane differs from its single launch at 8 x 10k")
+    plain_ms, want = timed(lambda: [propagate.greedy_columns_plain(q, 0, 1e-6) for q in pts])
+    err = max(_equal("greedy_columns_batched", (a, sg), w, lane=i, shape=f"8 x {n}",
+                     main_path_shape=True)
+              for i, ((a, sg), w) in enumerate(zip(got, want)))
+    b = bound_ms(8 * (24 * n + 8 * n), 8 * OPS_GREEDY_COLUMN * n * (n - 1))
+    res["greedy_columns_batched"] = dict(
+        shape=f"8 clouds x {n} points, column mode", ms=greedy["B"][8]["batched_ms"][0],
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], max_abs_err=err,
+        single_launches_ms=greedy["B"][8]["single_launches_ms"],
+        step_floor_132_blocks_ms=full_grid_a_us * (n - 1) / 1e3, by_batch=greedy["B"])
+    del got, want
+
+    orders = [torch.as_tensor(propagate.bfs_orders(p, 0, times=3)[0], device=dev)
+              for p in prepped]
+    mats = [fields.xie_interaction_matrix(q) for q in pts]
+    replay = {"B": {}}
+    for B in (2, 4, 8):
+        m, o = mats[:B], orders[:B]
+        batched = cuda_ms(lambda: propagate_cuda.replay_batched(m, o), 3, 1)
+        single = cuda_ms(lambda: [propagate_cuda.replay(I, oo) for I, oo in zip(m, o)], 3, 1)
+        again = cuda_ms(lambda: propagate_cuda.replay_batched(m, o), 3, 0)
+        replay["B"][B] = {"batched_ms": [batched, again], "single_launches_ms": single}
+    got = propagate_cuda.replay_batched(mats, orders)
+    for I, o, (w, inter) in zip(mats, orders, got):
+        w1, i1 = propagate_cuda.replay(I, o)
+        require(torch.equal(w, w1) and torch.equal(inter, i1),
+                "replay_batched: a lane differs from its single replay at 8 x 10k")
+    plain_ms, want = timed(lambda: [propagate.replay_plain(I, o) for I, o in zip(mats, orders)])
+    rel = [_replay_lane_vs_plain(f"lane {i} of 8 x {n}", I, o, w, inter, wp, ip)
+           for i, (I, o, (w, inter), (wp, ip)) in enumerate(zip(mats, orders, got, want))]
+    err = max(float((i - wi).abs().max()) for (_, i), (_, wi) in zip(got, want))
+    emit({"phase": "check", "kernel": "replay_batched", "case": f"8 x {n}",
+          "main_path_shape": True, "decisions_equal_plain": True,
+          "max_err_over_sum_abs": max(rel), "max_abs_err": err})
+    T = 3
+    b = bound_ms(8 * (4 * n * n + 4 * T * n + 12 * T * n), 8 * OPS_REPLAY * T * n * n)
+    res["replay_batched"] = dict(
+        shape=f"8 clouds x {T} orders x {n} points", ms=replay["B"][8]["batched_ms"][0],
+        plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], max_abs_err=err,
+        single_launches_ms=replay["B"][8]["single_launches_ms"], by_batch=replay["B"])
+    del mats, got, want
+    emit({"phase": "timing", "batched_kernels": res})
+    return res
 
 
 def _timed_orient(timer, orient, inp, method, kw):
@@ -2064,11 +2529,14 @@ def main(argv) -> int:
     hand_out = phase_main_path_patches(hand10, hand180, lion, launches)
     gt30 = ellipsoid(30000, SEED + 30)
     phase_main_path_xie(gt10, gt30, launches)
+    phase_serve(launches)
     tool = phase_main_path_mxu(launches)
     timing = phase_timing(gt10, gt180, dev)
     timing.update(phase_timing_patches(hand_out, hand180, lion, dev))
     timing.update(phase_timing_xie(gt10, gt30, dev))
     timing.update(phase_timing_mxu(tool, mxu_plain_ms, dev))
+    timing.update(phase_timing_serve(
+        dev, timing["greedy_columns"]["full_grid_us_per_step"]["a_us"]))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2083,7 +2551,9 @@ def main(argv) -> int:
                         "library_call": LIBRARY_CALLS.get(name),
                         "shape": t["shape"],
                         **{k: t[k] for k in ("fit_us_per_step", "full_grid_us_per_step",
-                                             "step_floor_ms") if k in t}})
+                                             "step_floor_ms", "step_floor_132_blocks_ms",
+                                             "single_launches_ms")
+                           if k in t}})
     emit({"kernels": kernels})
     print(info["nvidia_smi"].splitlines()[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -9,7 +9,10 @@ the CLIs `orient_pointcloud`, `orient_large`, `dipole_api`,
 `reference_orientation`) end to end; and the mirror-field ("xie") family:
 `api.orient(method="xie"|"tree_xie"|"hoppe")`, the server's algorithm
 handlers (`serve.handlers.dispatch`) and the patch-graph pipeline
-(`pipelines.graph_dipole`, `python -m dipole_tpu_torch.cli.graph_dipole`).
+(`pipelines.graph_dipole`, `python -m dipole_tpu_torch.cli.graph_dipole`);
+and the reference-protocol TCP servers with micro-batching
+(`python -m dipole_tpu_torch.serve.server_para`, `serve.server`;
+`api.orient_simple_batch` is the in-memory form of the batching).
 
 Ground rules:
   * No JAX. The package imports `torch`, never `jax`, and nothing of

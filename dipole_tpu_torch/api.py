@@ -1,4 +1,4 @@
-"""In-memory orientation API — the port of dipole_tpu/api.py:139-193 and
+"""In-memory orientation API — the port of dipole_tpu/api.py:139-219 and
 :223-642: per-point propagation, the patch pipelines, and the xie, tree-xie
 and Hoppe methods of `orient` (through serve/handlers.py).
 
@@ -27,7 +27,7 @@ from dipole_tpu_torch.utils import prng
 from dipole_tpu_torch.utils.io import Transform, orient_center_np
 from dipole_tpu_torch.utils.timing import timer_factory
 
-__all__ = ["orient", "orient_simple", "orient_patches",
+__all__ = ["orient", "orient_simple", "orient_simple_batch", "orient_patches",
            "orient_patches_consensus", "orient_large", "transfer_orientation",
            "resolve_mesh", "MAX_PATCH_SIZE"]
 
@@ -87,6 +87,34 @@ def orient_simple(points, diffuse: bool = False, estimate: bool = False,
 
     input_pc = _sign_fix(input_pc, stage_timer, dev)
     return transform.inverse(input_pc)
+
+
+def orient_simple_batch(clouds, diffuse: bool = False, estimate: bool = False,
+                        n: int = 30, device="cuda") -> list:
+    """orient_simple for SEVERAL independent clouds in one batched device
+    call (JAX api.py:196-219), the in-memory form of the server's
+    micro-batching (serve/batching.py): the greedy orderings run as one
+    batched launch (every cloud on the column greedy, whatever its size)
+    and the sign fixes together, so B clouds cost about one cloud's time
+    instead of B. Per-cloud results are independent of the batch; a single
+    cloud delegates to orient_simple. Returns a list of (N_b, 6) arrays in
+    original coordinates."""
+    dev = resolve_device(device)
+    clouds = [np.asarray(c, dtype=np.float32) for c in clouds]
+    if not clouds:
+        return []
+    if len(clouds) == 1:
+        return [orient_simple(clouds[0], diffuse=diffuse, estimate=estimate,
+                              n=n, device=dev)]
+    prepped, transforms = [], []
+    for pc in clouds:
+        if estimate or pc.shape[1] == 3:
+            pc = estimate_normals(pc, max_nn=n, device=dev)
+        pc, tr = Transform.trans(pc)
+        prepped.append(pc)
+        transforms.append(tr)
+    oriented = propagate.orient_clouds_batched(prepped, diffuse=diffuse, device=dev)
+    return [tr.inverse(o) for o, tr in zip(oriented, transforms)]
 
 
 def _as_models(models, dev):

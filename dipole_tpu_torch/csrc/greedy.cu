@@ -98,6 +98,26 @@
 // row mode's (chip_smoke.py times both sides of each). The block shape
 // (1024 threads, against 256 and 512) was measured too (PERF.md).
 //
+// Batched (greedy_batched_kernel, column mode only; replaces the vmapped
+// XLA scan dipole_tpu/ops/propagate.py:_greedy_scan_onthefly_vmapped,
+// :213-216, behind the server's micro-batching): B independent clouds in one
+// cooperative launch. The clouds lie side by side in one (6, sum N)
+// channel-major array; the host plans a block range for each
+// (ops/propagate_cuda.greedy_batch_plan: one block up to 4096 points, above
+// that blocks in proportion to the points, at most the single launch's
+// grid), and each cloud's exchange words start at twice its first block, so
+// a block polls only its own cloud's G_b words and the tag arithmetic is
+// that of a launch over the cloud alone. A block finds its cloud in a table
+// passed by value (__grid_constant__) and runs the same body. All blocks of
+// a launch fit on the SMs at once; the host cuts a larger batch into
+// several launches. One kPer serves the launch (a template parameter), so
+// the batched entry takes only clouds whose state fits in registers, up to
+// 8 points a thread: 1.08M points on 132 SMs. The time of a step is latency
+// (the exchange), so B clouds side by side cost about what the slowest of
+// them costs alone, not B times as much. A lone cloud keeps
+// greedy_owner_kernel: launched as a batch of one, the batched kernel took
+// 4.7% longer a step at 10000 and at 180000 points (PERF.md).
+//
 // Arithmetic: compiled with -fmad=false; sqrtf and / are IEEE, and the
 // column follows propagate.py:_dipole_column term for term in the plain
 // torch version's order (two divides, not the Pallas kernels'
@@ -105,7 +125,9 @@
 // rate) update adds s x col with s = +-1, which is exact before the one
 // rounding of the add; the xie mask multiplies by 1 or 0 as the plain
 // version does. So the kernel and its plain version agree bit for bit in
-// acc and sign.
+// acc and sign. Ties are decided by the keys' total order, which no grid
+// changes; so a batched lane is bit-equal in acc and sign to the launch
+// over its cloud alone, exact ties across blocks included.
 
 #include "common.cuh"
 
@@ -121,6 +143,7 @@ constexpr int kColumnsOneBlockMaxN = 4096;
 constexpr int kXieOneBlockMaxN = 4096;
 constexpr int kMaxN = 1 << 24;            // the key's index field
 constexpr int kPoll = 8;                  // words a lane polls: <= 256 blocks
+constexpr int kMaxClouds = 128;           // clouds a batched launch takes
 constexpr unsigned kFull = 0xffffffffu;
 
 // The update modes (see the note at the top); the C entry points' `mode`.
@@ -194,30 +217,34 @@ __device__ __forceinline__ unsigned long long warp_max_key(unsigned long long k)
 
 // Xie mode, masked: marks in hits the rows of knn[c] (column c's kept
 // entries) that this block owns, bit j of word t for the point
-// blockIdx.x T + t + j G T; lanes from `first` on, `step` apart.
+// blk T + t + j G T; lanes from `first` on, `step` apart.
 __device__ __forceinline__ void mark_hits(const int* __restrict__ knn, int k,
-                                          int c, int n, int stride,
+                                          int c, int n, int blk, int stride,
                                           unsigned* hits, int first, int step) {
   for (int m = first; m < k; m += step) {
     const int i = knn[(size_t)c * k + m];
     if (i < 0 || i >= n) continue;  // selects nothing, as in the JAX scan
     const int j = i / stride, r = i - j * stride;
-    if (r / kThreads == (int)blockIdx.x) atomicOr(hits + r % kThreads, 1u << j);
+    if (r / kThreads == blk) atomicOr(hits + r % kThreads, 1u << j);
   }
 }
 
-// The greedy with the state kept by its owner (see the note at the top).
+// The greedy with the state kept by its owner (see the note at the top),
+// over one cloud of n points held by G blocks, this block being blk of them
+// (blockIdx.x and gridDim.x in a launch over one cloud).
 // kPer > 0: kPer points a thread, acc (and the xie rate) in registers,
 // visited and sign as bits, coordinates (column mode) in shared memory;
 // kPer == 0 (row and column modes only): acc and sign in global memory.
-// Blocks of kThreads; slots: 2 x gridDim.x words, zero on entry; knn and k:
-// the xie mode's mask (k == 0: none).
+// Blocks of kThreads; slots: the cloud's 2 G words, zero on entry; knn and
+// k: the xie mode's mask (k == 0: none); plane: the distance of the
+// channel-major cloud's planes (column mode) or of the matrix's rows (row
+// and xie modes).
 template <int kMode, int kPer>
-__global__ void __launch_bounds__(kThreads, 1)
-greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
-                    const int* __restrict__ knn, int k,
-                    float* __restrict__ acc_out, float* __restrict__ sign_out,
-                    unsigned long long* __restrict__ slots) {
+__device__ __forceinline__ void
+greedy_owner(const float* __restrict__ data, int n, int start, float eps,
+             const int* __restrict__ knn, int k, float* __restrict__ acc_out,
+             float* __restrict__ sign_out, unsigned long long* __restrict__ slots,
+             size_t plane, int blk, int G) {
   static_assert(kMode != kXie || kPer > 0, "the xie mode keeps its state in registers");
   constexpr bool kCols = kMode == kColumns;
   extern __shared__ float sh_pts[];  // column mode, kPer > 0: 6 planes of kPer T
@@ -227,10 +254,9 @@ greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
   __shared__ unsigned hits[kMode == kXie ? kThreads : 1];  // xie mode, masked
   constexpr int kSlots = kPer > 0 ? kPer : 1;
   constexpr int T = kThreads;
-  const size_t nn = n;
-  const int G = gridDim.x;
+  const size_t nn = plane;
   const int stride = G * T;
-  const int tid = blockIdx.x * T + threadIdx.x;
+  const int tid = blk * T + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int P = kPer * T;
   const bool masked = kMode == kXie && k > 0;
@@ -255,7 +281,7 @@ greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
   if (masked) {  // the start point's column
     hits[threadIdx.x] = 0u;
     __syncthreads();
-    mark_hits(knn, k, c, n, stride, hits, threadIdx.x, T);
+    mark_hits(knn, k, c, n, blk, stride, hits, threadIdx.x, T);
     __syncthreads();
   }
   for (int step = 0; step < n; ++step) {
@@ -357,7 +383,7 @@ greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
       } else {
         unsigned long long* part = slots + (size_t)(step & 1) * G;
         const unsigned long long tag = (unsigned long long)((step + 1) & 0x3f) << kTagShift;
-        if (lane == 0) st_relaxed(part + blockIdx.x, b | tag);
+        if (lane == 0) st_relaxed(part + blk, b | tag);
         // every block's word, polled until all carry this step's tag: each
         // lane loads its blocks' words together, then checks them
         unsigned long long h[kPoll];
@@ -399,7 +425,7 @@ greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
       }
       if (lane == 0) win_key = w;
       // the owners read and cleared last step's marks before the barrier above
-      if (masked && w != 0ull) mark_hits(knn, k, key_index(w), n, stride, hits, lane, 32);
+      if (masked && w != 0ull) mark_hits(knn, k, key_index(w), n, blk, stride, hits, lane, 32);
     }
     __syncthreads();
     const unsigned long long w = win_key;
@@ -421,6 +447,45 @@ greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
       }
     }
   }
+}
+
+template <int kMode, int kPer>
+__global__ void __launch_bounds__(kThreads, 1)
+greedy_owner_kernel(const float* __restrict__ data, int n, int start, float eps,
+                    const int* __restrict__ knn, int k,
+                    float* __restrict__ acc_out, float* __restrict__ sign_out,
+                    unsigned long long* __restrict__ slots) {
+  greedy_owner<kMode, kPer>(data, n, start, eps, knn, k, acc_out, sign_out, slots,
+                            (size_t)n, blockIdx.x, gridDim.x);
+}
+
+// The clouds of a batched launch (column mode): cloud b's points are
+// [off[b], off[b] + n[b]) of the (6, total) channel-major array, its blocks
+// [g0[b], g0[b + 1]) of the grid and its exchange words the 2 (g0[b + 1] -
+// g0[b]) from slots + 2 g0[b]. Passed by value: every block reads it from
+// the constant bank, and the host checks it before the launch.
+struct GreedyBatch {
+  int count, total;
+  int off[kMaxClouds], n[kMaxClouds], start[kMaxClouds], g0[kMaxClouds + 1];
+};
+
+// B clouds in one cooperative launch: each block finds its cloud and runs
+// the body of a launch over that cloud alone, on its own blocks and its own
+// exchange words. Blocks of different clouds never wait on each other, and a
+// cloud's blocks finish after its n - 1 steps whatever the others do.
+template <int kPer>
+__global__ void __launch_bounds__(kThreads, 1)
+greedy_batched_kernel(const float* __restrict__ data, float eps,
+                      float* __restrict__ acc_out, float* __restrict__ sign_out,
+                      unsigned long long* __restrict__ slots,
+                      const __grid_constant__ GreedyBatch batch) {
+  int b = 0;
+  while (b + 1 < batch.count && batch.g0[b + 1] <= (int)blockIdx.x) ++b;
+  const int off = batch.off[b], g0 = batch.g0[b];
+  greedy_owner<kColumns, kPer>(data + off, batch.n[b], batch.start[b], eps, nullptr, 0,
+                               acc_out + off, sign_out + off, slots + 2 * (size_t)g0,
+                               (size_t)batch.total, (int)blockIdx.x - g0,
+                               batch.g0[b + 1] - g0);
 }
 
 // The SM count of the current device; fails unless the device takes
@@ -477,6 +542,36 @@ void* owner_kernel(int mode, int per) {
   return nullptr;
 }
 
+template <int kPer>
+void* batched_kernel() {
+  return (void*)greedy_batched_kernel<kPer>;
+}
+
+void* batched_kernel(int per) {
+  switch (per) {
+    case 1: return batched_kernel<1>();
+    case 2: return batched_kernel<2>();
+    case 4: return batched_kernel<4>();
+    case 8: return batched_kernel<8>();
+  }
+  return nullptr;
+}
+
+// Sets the kernel's dynamic shared memory, checks that a block fits on an
+// SM and launches a grid of g blocks cooperatively. Returns a cudaError_t
+// value.
+int launch_coop(void* kernel, int g, size_t smem, void** args, cudaStream_t stream) {
+  // above 48 KB with the static part: set for every size
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int e = check_resident(kernel, smem);
+  if (e != 0) return e;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(g), dim3(kThreads), args, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -526,20 +621,63 @@ int dipole_greedy(const float* data, int n, int start, float eps, int mode,
   void* kernel = owner_kernel(mode, per);
   const size_t smem =
       (mode == kColumns && per > 0) ? sizeof(float) * 6 * per * kThreads : 0;
-  // above 48 KB with the static part: set for every size
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  e = check_resident(kernel, smem);
-  if (e != 0) return e;
   info[0] = g;
   info[1] = per;
   void* args[] = {(void*)&data, (void*)&n,   (void*)&start, (void*)&eps,
                   (void*)&knn,  (void*)&k,   (void*)&acc,   (void*)&sign,
                   (void*)&slots};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(g), dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_coop(kernel, g, smem, args, stream);
+}
+
+// The most clouds dipole_greedy_batched takes in one launch.
+int dipole_greedy_batched_max_clouds() { return kMaxClouds; }
+
+// Runs the column-mode greedy over `count` clouds in one cooperative launch.
+// data: the clouds side by side, channel-major (6, total); cloud b is the
+// points [offs[b], offs[b] + ns[b]), starts at starts[b] and takes
+// blocks[b] blocks of the grid, in that order; acc and sign (total,) receive
+// each cloud's outputs at its points. per (1, 2, 4 or 8) is the points a
+// thread of every cloud, its state in registers: each cloud needs ns[b] <=
+// per x blocks[b] x 1024. The blocks together may not exceed the SMs, so
+// that every block is resident. slots: 2 x capacity words, zero on entry,
+// capacity >= the blocks. Each cloud's acc and sign are bit-equal to
+// dipole_greedy's on that cloud alone, on any grid: the same column
+// entries, the same updates, the same total order of the keys. Returns a
+// cudaError_t value (0 on success).
+int dipole_greedy_batched(const float* data, int total, const int* offs, const int* ns,
+                          const int* starts, const int* blocks, int count, int per,
+                          float eps, float* acc, float* sign,
+                          unsigned long long* slots, int capacity,
+                          cudaStream_t stream) {
+  void* kernel = batched_kernel(per);
+  if (count < 1 || count > kMaxClouds || total < 1 || capacity < 1 || kernel == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int sms = 0;
+  const int e = coop_sms(&sms);
+  if (e != 0) return e;
+  GreedyBatch batch;
+  batch.count = count;
+  batch.total = total;
+  int g = 0;
+  for (int b = 0; b < count; ++b) {
+    const int n = ns[b];
+    if (n < 1 || offs[b] < 0 || offs[b] > total - n || starts[b] < 0 || starts[b] >= n ||
+        blocks[b] < 1 || (long long)n > (long long)per * blocks[b] * kThreads) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    batch.off[b] = offs[b];
+    batch.n[b] = n;
+    batch.start[b] = starts[b];
+    batch.g0[b] = g;
+    g += blocks[b];
+    if (g > min(min(sms, capacity), 32 * kPoll)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  batch.g0[count] = g;
+  const size_t smem = sizeof(float) * 6 * per * kThreads;
+  void* args[] = {(void*)&data, (void*)&eps,   (void*)&acc,
+                  (void*)&sign, (void*)&slots, (void*)&batch};
+  return launch_coop(kernel, g, smem, args, stream);
 }
 
 }  // extern "C"

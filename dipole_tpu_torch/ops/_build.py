@@ -35,7 +35,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "entry", "check", "BUILD_LOG"]
+__all__ = ["SOURCES", "build_all", "library", "entry", "check", "bump", "BUILD_LOG",
+           "COUNT_LOCK"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -50,6 +51,16 @@ _NVCC_TIMEOUT_S = 600
 BUILD_LOG: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.RLock()
+# the launch and plain-call counters' lock: handler threads of the server
+# launch kernels concurrently
+COUNT_LOCK = threading.Lock()
+
+
+def bump(counts: dict, name: str) -> None:
+    """counts[name] += 1 under COUNT_LOCK, so that no count of concurrent
+    launches (or plain calls) is lost."""
+    with COUNT_LOCK:
+        counts[name] += 1
 
 
 def _nvcc() -> str:

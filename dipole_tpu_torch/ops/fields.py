@@ -34,10 +34,11 @@ import numpy as np
 import torch
 
 from dipole_tpu_torch.device import as_f32, resolve_device
-from dipole_tpu_torch.ops import fields_cuda
+from dipole_tpu_torch.ops import _build, fields_cuda
 from dipole_tpu_torch.utils.io import gen_grid
 
 __all__ = ["potential", "potential_plain", "measure_mean_potential",
+           "measure_mean_potential_batched",
            "field_grad", "field_grad_plain", "reference_field",
            "dipole_interaction_matrix", "dipole_interaction_matrix_plain",
            "point_group_interaction", "point_group_interaction_plain",
@@ -58,7 +59,7 @@ _GROUP_BLOCK_S = 4096   # sources per one-hot product of the plain group
 
 def _count_plain(name: str, t: torch.Tensor) -> None:
     if t.is_cuda:
-        PLAIN_CUDA_CALLS[name] += 1
+        _build.bump(PLAIN_CUDA_CALLS, name)
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -108,6 +109,21 @@ def measure_mean_potential(pc, device="cuda") -> float:
     dev = resolve_device(device)
     grid = torch.as_tensor(gen_grid(10), device=dev)
     return float(torch.mean(potential(as_f32(pc, dev), grid)))
+
+
+def measure_mean_potential_batched(pcs, device="cuda") -> np.ndarray:
+    """The mean lattice potential of SEVERAL clouds (JAX fields.py:240-259),
+    the micro-batched form of the sign fix: one potential launch a cloud
+    (a cloud's sign fix is a small kernel), the means read back together.
+    Each mean is measure_mean_potential's on that cloud, bit for bit. The
+    JAX package's sentinel rows (padding to one vmapped shape) add terms
+    that are exactly zero, so there are none here. Returns (B,) float32."""
+    dev = resolve_device(device)
+    if not len(pcs):
+        return np.zeros((0,), np.float32)
+    grid = torch.as_tensor(gen_grid(10), device=dev)
+    return torch.stack([torch.mean(potential(as_f32(pc, dev), grid))
+                        for pc in pcs]).cpu().numpy()
 
 
 def _imatrix_tile(t: torch.Tensor, sources: torch.Tensor,

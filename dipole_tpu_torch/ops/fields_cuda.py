@@ -77,7 +77,7 @@ def potential(sources: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         err = fn(sources.data_ptr(), m, targets.data_ptr(), t,
                  partial.data_ptr(), out.data_ptr(), stream)
     _build.check(lib, err, "dipole_potential")
-    LAUNCHES["dipole_potential"] += 1
+    _build.bump(LAUNCHES, "dipole_potential")
     return out
 
 
@@ -122,7 +122,7 @@ def dipole_imatrix(targets: torch.Tensor, sources: torch.Tensor,
         err = fn(targets.data_ptr(), t, sources.data_ptr(), m, float(eps),
                  int(symmetric), out.data_ptr(), stream)
     _build.check(lib, err, "dipole_imatrix")
-    LAUNCHES["dipole_imatrix"] += 1
+    _build.bump(LAUNCHES, "dipole_imatrix")
     return out
 
 
@@ -154,7 +154,7 @@ def xie_imatrix(targets: torch.Tensor, sources: torch.Tensor, C: float,
         err = fn(targets.data_ptr(), t, sources.data_ptr(), m, float(C),
                  int(transposed), int(symmetric), out.data_ptr(), stream)
     _build.check(lib, err, "xie_imatrix")
-    LAUNCHES["xie_imatrix"] += 1
+    _build.bump(LAUNCHES, "xie_imatrix")
     return out
 
 
@@ -187,7 +187,7 @@ def field_grad(sources: torch.Tensor, targets: torch.Tensor,
         err = fn(sources.data_ptr(), m, targets.data_ptr(), t, float(eps),
                  partial.data_ptr(), out.data_ptr(), stream)
     _build.check(lib, err, "dipole_field")
-    LAUNCHES["dipole_field"] += 1
+    _build.bump(LAUNCHES, "dipole_field")
     return out
 
 
@@ -244,7 +244,7 @@ def point_group(pts: torch.Tensor, group_ids: torch.Tensor, num_groups: int,
                  num_groups, chunks.data_ptr(), chunks.shape[0] - 1,
                  float(eps), out_t.data_ptr(), stream)
     _build.check(lib, err, "dipole_group")
-    LAUNCHES["dipole_group"] += 1
+    _build.bump(LAUNCHES, "dipole_group")
     return out_t.t()
 
 
@@ -266,7 +266,7 @@ def _field_mma(name: str, sources: torch.Tensor, targets: torch.Tensor,
         err = fn(sources.data_ptr(), m, targets.data_ptr(), t, float(eps),
                  partial.data_ptr(), out.data_ptr(), stream)
     _build.check(lib, err, f"dipole_{name}")
-    LAUNCHES[name] += 1
+    _build.bump(LAUNCHES, name)
     return out
 
 

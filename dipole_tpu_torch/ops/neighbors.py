@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from dipole_tpu_torch.ops import neighbors_cuda
+from dipole_tpu_torch.ops import _build, neighbors_cuda
 
 __all__ = ["knn_with_dist", "knn_with_dist_plain", "fps_masked_batch",
            "fps_masked_batch_plain", "PLAIN_CUDA_CALLS"]
@@ -43,7 +43,7 @@ def knn_with_dist_plain(dst: torch.Tensor, src: torch.Tensor, k: int):
     """Plain torch version of the kNN kernel: the k-step argmin scan.
     dst (B, Nd, 3), src (B, Ns, 3) -> idx (B, Nd, k) int32, d2 float32."""
     if dst.is_cuda:
-        PLAIN_CUDA_CALLS["knn"] += 1
+        _build.bump(PLAIN_CUDA_CALLS, "knn")
     dd = _sq_dist(dst[:, :, None, :], src[:, None, :, :])       # (B, Nd, Ns)
     idx, d2 = [], []
     for _ in range(k):
@@ -69,7 +69,7 @@ def fps_masked_batch_plain(pos: torch.Tensor, valid: torch.Tensor, m: int,
     """Plain torch version of the FPS kernel: _fps_masked over the batch.
     pos (B, N, 3), valid (B, N) bool, starts (B,) -> (B, m) int32."""
     if pos.is_cuda:
-        PLAIN_CUDA_CALLS["fps"] += 1
+        _build.bump(PLAIN_CUDA_CALLS, "fps")
     rows = torch.arange(pos.shape[0], device=pos.device)
     starts = starts.to(device=pos.device, dtype=torch.int64)
 

@@ -51,7 +51,7 @@ def knn_with_dist(dst: torch.Tensor, src: torch.Tensor, k: int):
         err = fn(dst.data_ptr(), nd, src.data_ptr(), ns, b, int(k),
                  idx.data_ptr(), d2.data_ptr(), stream)
     _build.check(lib, err, "dipole_knn")
-    LAUNCHES["knn"] += 1
+    _build.bump(LAUNCHES, "knn")
     return idx, d2
 
 
@@ -95,5 +95,5 @@ def fps_masked_batch(pos: torch.Tensor, valid: torch.Tensor, m: int,
         err = fn(pos.data_ptr(), valid.data_ptr(), b, n, int(m),
                  starts.data_ptr(), warps, per, out.data_ptr(), stream)
     _build.check(lib, err, "dipole_fps")
-    LAUNCHES["fps"] += 1
+    _build.bump(LAUNCHES, "fps")
     return out

@@ -34,6 +34,18 @@ BFS-tree voting that draws the orders on the host and aligns the replayed
 runs exactly (ops/solve.py). Every path holds one N x N array: exactly N
 rows and columns (the JAX bucket padding is a TPU artefact), the kNN mask
 in (N, k) index form, points_weight applied on the fly.
+
+The batched forms behind the server's micro-batching (JAX
+propagate.py:213-296, :861-922) take B independent clouds:
+greedy_sign_sequence_batched runs every lane's on-the-fly column greedy,
+whatever its size, as the JAX package's vmapped scan does (never the matrix
+tier); orient_clouds_batched adds the diffuse re-vote and the sign fix
+(a lone cloud takes the tiered greedy_sign_sequence); xie_in_order_batched
+replays every cloud's orders over its own exact N_b x N_b matrix. On the
+card each is one batched launch (csrc/greedy.cu's and csrc/replay.cu's
+batched entries), on the CPU a plain loop a lane; the JAX package's
+power-of-two batch and bucket padding only limited XLA compiles, and the
+port has none.
 """
 from __future__ import annotations
 
@@ -42,9 +54,11 @@ import torch
 
 from dipole_tpu_torch import graphs, native
 from dipole_tpu_torch.device import as_f32, resolve_device
-from dipole_tpu_torch.ops import fields, propagate_cuda, solve
+from dipole_tpu_torch.ops import _build, fields, propagate_cuda, solve
 
-__all__ = ["greedy_sign_sequence", "strongest_field_propagation_points",
+__all__ = ["greedy_sign_sequence", "greedy_sign_sequence_batched",
+           "orient_clouds_batched", "xie_in_order_batched",
+           "strongest_field_propagation_points",
            "strongest_field_propagation_patches",
            "strongest_field_propagation_reps",
            "xie_propagation_points", "xie_propagation_points_plus",
@@ -103,14 +117,14 @@ def _greedy_plain(n: int, start: int, column, device):
 def greedy_rows_plain(I: torch.Tensor, start: int):
     """Plain torch version of the row-mode greedy kernel."""
     if I.is_cuda:
-        PLAIN_CUDA_CALLS["greedy_rows"] += 1
+        _build.bump(PLAIN_CUDA_CALLS, "greedy_rows")
     return _greedy_plain(I.shape[0], start, lambda c: I[c], I.device)
 
 
 def greedy_columns_plain(pts: torch.Tensor, start: int, eps: float):
     """Plain torch version of the column-mode greedy kernel."""
     if pts.is_cuda:
-        PLAIN_CUDA_CALLS["greedy_columns"] += 1
+        _build.bump(PLAIN_CUDA_CALLS, "greedy_columns")
     return _greedy_plain(pts.shape[0], start,
                          lambda c: dipole_column(pts, c, eps), pts.device)
 
@@ -139,6 +153,67 @@ def greedy_sign_sequence(pts, starting_point: int = 0, eps: float = 1e-6,
     if dev.type == "cpu":
         return greedy_columns_plain(pts, starting_point, eps)
     return propagate_cuda.greedy_columns(pts, starting_point, eps)
+
+
+def greedy_sign_sequence_batched(pts_list, starting_points=None,
+                                 eps: float = 1e-6, device="cuda"):
+    """The greedy ordering of SEVERAL independent clouds, the server's
+    micro-batching core (JAX propagate.py:219-265): every lane runs the
+    on-the-fly column greedy, whatever its size (the JAX package's vmapped
+    scan), in one batched launch on the card (csrc/greedy.cu; a lane's state
+    stays in registers, so the card refuses a cloud above the SMs x 8192
+    points) or greedy_columns_plain a lane on the CPU. Each lane equals
+    greedy_sign_sequence(..., matrix_limit=0) on its cloud alone, bit for
+    bit. Returns a list of (acc, sign) float32 numpy arrays."""
+    dev = resolve_device(device)
+    pts = [as_f32(p, dev)[:, :6].contiguous() for p in pts_list]
+    starts = [0] * len(pts) if starting_points is None else list(starting_points)
+    if len(starts) != len(pts):
+        raise ValueError(f"{len(pts)} clouds but {len(starts)} starting points")
+    for b, (p, s0) in enumerate(zip(pts, starts)):
+        if len(p) > 1 and not 0 <= s0 < len(p):
+            raise ValueError(f"cloud {b}: starting point {s0} outside [0, {len(p)})")
+    run = [b for b, p in enumerate(pts) if len(p) > 1]
+    if dev.type == "cpu":
+        lanes = [greedy_columns_plain(pts[b], starts[b], eps) for b in run]
+    else:
+        lanes = propagate_cuda.greedy_columns_batched(
+            [pts[b] for b in run], [starts[b] for b in run], eps)
+    out = [(np.zeros(len(p), np.float32), np.ones(len(p), np.float32)) for p in pts]
+    for b, (acc, sign) in zip(run, lanes):
+        out[b] = (acc.cpu().numpy(), sign.cpu().numpy())
+    return out
+
+
+def orient_clouds_batched(pcs, diffuse: bool = False, device="cuda") -> list:
+    """Greedy-orient SEVERAL normalized (N_b, 6) clouds (JAX
+    propagate.py:268-296): the batched greedy ordering (a lone cloud takes
+    the tiered greedy_sign_sequence), the optional diffuse re-vote, and the
+    lattice sign fix of every cloud (fields.measure_mean_potential_batched).
+    The shared core of the server's simple_estimate micro-batch and
+    api.orient_simple_batch. Returns new oriented arrays, still normalized."""
+    dev = resolve_device(device)
+    pcs = [np.asarray(p, np.float32) for p in pcs]
+    if not pcs:
+        return []
+    if len(pcs) == 1:
+        acc, sign = greedy_sign_sequence(pcs[0], device=dev)
+        results = [(acc.cpu().numpy(), sign.cpu().numpy())]
+    else:
+        results = greedy_sign_sequence_batched(pcs, device=dev)
+    out = []
+    for pc, (acc, sign) in zip(pcs, results):
+        if diffuse:
+            vote = np.where(acc * sign > 0, 1.0, -1.0).astype(np.float32)
+            sign = sign * vote
+        o = pc.copy()
+        o[:, 3:6] *= sign[:, None]
+        out.append(o)
+    means = fields.measure_mean_potential_batched(out, device=dev)
+    for o, m in zip(out, means):
+        if m < 0:
+            o[:, 3:6] *= -1
+    return out
 
 
 def strongest_field_propagation_points(pts, diffuse: bool = False,
@@ -342,7 +417,7 @@ def xie_greedy_plain(IT: torch.Tensor, start: int, knn_idx=None):
     propagate.py:_xie_greedy_scan step for step over the transposed xie
     matrix IT (row c = column c of I), N - 1 steps."""
     if IT.is_cuda:
-        PLAIN_CUDA_CALLS["greedy_xie"] += 1
+        _build.bump(PLAIN_CUDA_CALLS, "greedy_xie")
     n, dev = IT.shape[0], IT.device
 
     def col(c):
@@ -449,7 +524,7 @@ def replay_plain(I: torch.Tensor, orders: torch.Tensor, knn_idx=None, colw=None)
     index form each step), its row sums in float64. Returns (w (T, N)
     float32, inter (T, N) float64)."""
     if I.is_cuda:
-        PLAIN_CUDA_CALLS["replay"] += 1
+        _build.bump(PLAIN_CUDA_CALLS, "replay")
     T, steps = orders.shape
     n, dev = I.shape[0], I.device
     w = torch.zeros((T, n), dtype=torch.float32, device=dev)
@@ -495,11 +570,7 @@ def xie_propagation_in_order(pts, orders, eps: float = 1e-2,
     if kernel not in ("xie", "dipole"):
         raise ValueError(f"unknown kernel {kernel!r}")
     pts = np.asarray(pts, dtype=np.float32)
-    n = len(pts)
-    orders = np.asarray(orders, dtype=np.int64)
-    if orders.ndim != 2 or orders.shape[1] > n or (
-            orders.size and (orders.min() < 0 or orders.max() >= n)):
-        raise ValueError(f"orders: expected (T, <= {n}) indices in [0, {n})")
+    orders = _check_orders(orders, len(pts))
     knn_idx = colw = None
     if knn_mask > 0:
         knn_idx = torch.as_tensor(_knn_idx(pts, knn_mask), device=dev)
@@ -519,6 +590,51 @@ def xie_propagation_in_order(pts, orders, eps: float = 1e-2,
             inter = _masked_inter(I.t(), knn_idx, wq)
     del I
     return (inter < 0).cpu().numpy()
+
+
+def _check_orders(orders, n: int) -> np.ndarray:
+    orders = np.asarray(orders, dtype=np.int64)
+    if orders.ndim != 2 or orders.shape[1] > n or (
+            orders.size and (orders.min() < 0 or orders.max() >= n)):
+        raise ValueError(f"orders: expected (T, <= {n}) indices in [0, {n})")
+    return orders
+
+
+def xie_in_order_batched(pts_list, orders_list, diffuse: bool = False,
+                         C: float = 3.0, kernel: str = "xie",
+                         device="cuda") -> list:
+    """Replay SEVERAL independent clouds' order sets (JAX
+    propagate.py:873-922), the server's tree-xie micro-batching core: each
+    cloud's exact N_b x N_b matrix (xie, or the dipole matrix at eps 1e-6;
+    no padded stack), then every lane's orders in one batched replay on the
+    card (csrc/replay.cu) or replay_plain a cloud on the CPU, and the
+    diffuse re-vote per cloud. Each cloud's flips equal
+    xie_propagation_in_order's on it alone. All B matrices are held at once:
+    callers keep sum N_b^2 inside a budget (serve/batching.py). Returns a
+    list of (T_b, N_b) bool flip masks."""
+    dev = resolve_device(device)
+    if kernel not in ("xie", "dipole"):
+        raise ValueError(f"unknown kernel {kernel!r}")
+    if len(pts_list) != len(orders_list):
+        raise ValueError(f"{len(pts_list)} clouds but {len(orders_list)} order sets")
+    mats, orders = [], []
+    for p, o in zip(pts_list, orders_list):
+        p = np.asarray(p, dtype=np.float32)
+        orders.append(torch.as_tensor(_check_orders(o, len(p)), device=dev))
+        pt = as_f32(p, dev)
+        mats.append(fields.xie_interaction_matrix(pt, C=C) if kernel == "xie"
+                    else fields.dipole_interaction_matrix(pt, eps=1e-6))
+    if dev.type == "cpu":
+        lanes = [replay_plain(I, o) for I, o in zip(mats, orders)]
+    else:
+        lanes = propagate_cuda.replay_batched(mats, orders)
+    out = []
+    for b, (w, inter) in enumerate(lanes):
+        if diffuse:
+            inter = w @ mats[b].t()
+        mats[b] = None
+        out.append((inter < 0).cpu().numpy())
+    return out
 
 
 def xie_propagation_bfs_tree(pts, eps: float = 1e-2, diffuse: bool = False,

@@ -6,9 +6,11 @@ socket_server_para.py:70-135): simple_estimate, hoppe_estimate,
 graph_dipole_estimate, xie_propagation, tree_xie_propagation. Degenerate
 inputs (< max_nn points) short-circuit with placeholder normals like the
 reference's warning path (socket_server_para.py:70-75). Every handler takes
-`device` (default "cuda"). The socket servers, the wire protocol and the
-micro-batcher come with the serving slice, the server mesh with the
-multi-device slice: `batcher=` and a mesh above one device raise.
+`device` (default "cuda"). With a `batcher` (serve/batching.MicroBatcher,
+the threaded server's), simple_estimate and tree_xie_propagation without a
+kNN mask run their device stages micro-batched with concurrent requests.
+The server mesh comes with the multi-device slice: a mesh above one device
+raises.
 """
 from __future__ import annotations
 
@@ -21,9 +23,6 @@ from dipole_tpu_torch.ops.estimate import estimate_normals
 from dipole_tpu_torch.utils.io import Transform
 
 __all__ = ["HANDLERS", "dispatch", "set_mesh", "get_mesh"]
-
-SERVING_SLICE = ("micro-batching (batcher=, serve/batching.py) is not ported "
-                 "yet; it comes with the serving slice (ROADMAP.md, 'Serving')")
 
 
 def set_mesh(mesh) -> None:
@@ -106,8 +105,6 @@ def dispatch(function_name: str, xyz_data: np.ndarray, config: dict,
              log=None, batcher=None, device="cuda") -> np.ndarray:
     if function_name not in HANDLERS:
         raise ValueError(f"Unknown method: {function_name}")
-    if batcher is not None:
-        raise NotImplementedError(SERVING_SLICE)
     max_nn = config.get("max_nn", 30)
     if function_name != "hoppe_estimate" and len(xyz_data) < max_nn:
         if log is not None:
@@ -119,4 +116,13 @@ def dispatch(function_name: str, xyz_data: np.ndarray, config: dict,
         out = np.ones((len(xyz_data), 6))
         out[:, :3] = xyz_data
         return out
+    if batcher is not None and function_name == "simple_estimate":
+        from dipole_tpu_torch.serve.batching import batched_simple_estimate
+
+        return batched_simple_estimate(batcher, xyz_data, config, device=device)
+    if batcher is not None and function_name == "tree_xie_propagation" \
+            and config.get("knn_mask", -1) <= 0:
+        from dipole_tpu_torch.serve.batching import batched_tree_xie
+
+        return batched_tree_xie(batcher, xyz_data, config, device=device)
     return HANDLERS[function_name](xyz_data, config, device=device)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from dipole_tpu_torch.device import as_f32, resolve_device
-from dipole_tpu_torch.ops import fields, fields_cuda
+from dipole_tpu_torch.ops import _build, fields, fields_cuda
 from dipole_tpu_torch.ops.fields import sqrt_rn
 
 __all__ = ["field_mxu_exact", "field_mxu_expansion", "field_mxu_exact_plain",
@@ -54,7 +54,7 @@ PLAIN_CUDA_CALLS = {"field_mxu_exact": 0, "field_mxu_expansion": 0}
 
 def _count_plain(name: str, t: torch.Tensor) -> None:
     if t.is_cuda:
-        PLAIN_CUDA_CALLS[name] += 1
+        _build.bump(PLAIN_CUDA_CALLS, name)
 
 
 def _ab(c, safe_r2, denom, zero):

@@ -241,7 +241,9 @@ def test_main_path_takes_kernels_only(cuda_device):
                                     "xie_imatrix": 0, "field_mxu_exact": 0,
                                     "field_mxu_expansion": 0}
     assert propagate_cuda.LAUNCHES == {"greedy_rows": 1, "greedy_columns": 0,
-                                       "greedy_xie": 0, "replay": 0}
+                                       "greedy_xie": 0, "replay": 0,
+                                       "greedy_columns_batched": 0,
+                                       "replay_batched": 0}
     assert not any(fields.PLAIN_CUDA_CALLS.values())
     assert not any(propagate.PLAIN_CUDA_CALLS.values())
 
@@ -640,8 +642,10 @@ def test_xie_greedy_kernel_many_zero_entries(cuda_device, blocks, k):
     _xie_check(sphere(4500, 27), 9, k, cuda_device, blocks=blocks, zeros=True)
 
 
+# 50 orders: more than the 48 lanes of one blocked loop (csrc/replay.cu)
 @pytest.mark.parametrize("T,masked,weighted", [(1, False, False), (3, True, False),
-                                               (9, False, True), (17, True, True)])
+                                               (9, False, True), (17, True, True),
+                                               (50, False, True)])
 def test_replay_kernel_takes_the_plain_decisions(cuda_device, T, masked, weighted):
     from dipole_tpu_torch.ops.propagate import _knn_idx
 
@@ -845,3 +849,153 @@ def test_mxu_tool_takes_kernels_only(cuda_device):
         fields_cuda.field_mxu_exact(torch.zeros((4, 6), dtype=torch.float64,
                                                 device=cuda_device),
                                     torch.zeros((2, 3), device=cuda_device), 1e-5)
+
+
+# the batched entries behind the server's micro-batching (csrc/greedy.cu's
+# and csrc/replay.cu's): every lane bit-equal to the launch over its cloud
+# alone, and to the plain version
+
+def _tied(n, seed):
+    pc = sphere(n, seed)
+    pc[n // 2:] = pc[:n // 2]
+    return pc
+
+
+@pytest.mark.parametrize("case", ["one block beside larger ones", "eight of 10000",
+                                  "ties across blocks", "several launches",
+                                  "more clouds than SMs"])
+def test_greedy_batched_lanes_equal_single_launches(cuda_device, case):
+    kw = {}
+    if case == "one block beside larger ones":
+        clouds = [sphere(n, 40 + n) for n in (3000, 12000, 4097, 700)]
+    elif case == "eight of 10000":
+        clouds = [sphere(10000, 50 + b) for b in range(8)]
+    elif case == "ties across blocks":
+        clouds = [_tied(6000, 41), _tied(20000, 42), sphere(2000, 43)]
+    elif case == "several launches":
+        clouds = [sphere(n, 44 + n) for n in (10000, 9000, 6000, 1000)]
+        kw["_sms"] = 4
+    else:
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        clouds = [sphere(200 + b, 45 + b) for b in range(sms + 8)]
+    pts = [torch.as_tensor(pc, device=cuda_device) for pc in clouds]
+    starts = [(7 * b) % len(p) for b, p in enumerate(pts)]
+    got = propagate_cuda.greedy_columns_batched(pts, starts, 1e-6, **kw)
+    launches = propagate_cuda.last_launch()["launches"]
+    assert (len(launches) > 1) == (case in ("several launches", "more clouds than SMs"))
+    for p, s0, (acc, sign) in zip(pts, starts, got):
+        a1, s1 = propagate_cuda.greedy_columns(p, s0, 1e-6)
+        assert torch.equal(acc, a1) and torch.equal(sign, s1)
+    if case != "more clouds than SMs":
+        for p, s0, (acc, sign) in list(zip(pts, starts, got))[:4]:
+            if len(p) <= 6000 or case == "eight of 10000":
+                ap, sp = propagate.greedy_columns_plain(p, s0, 1e-6)
+                assert torch.equal(acc, ap) and torch.equal(sign, sp)
+    if case == "ties across blocks":
+        for (acc, _), p in zip(got[:2], pts[:2]):
+            h = len(p) // 2
+            assert torch.equal(acc[:h], acc[h:])
+
+
+def test_greedy_batched_refuses_what_registers_cannot_hold(cuda_device):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    big = torch.zeros((sms * propagate_cuda.POINTS_PER_SM + 1, 6), device=cuda_device)
+    small = torch.as_tensor(sphere(100, 46), device=cuda_device)
+    with pytest.raises(ValueError, match="registers"):
+        propagate_cuda.greedy_columns_batched([small, big], [0, 0], 1e-6)
+    with pytest.raises(ValueError, match="starting point"):
+        propagate_cuda.greedy_columns_batched([small], [100], 1e-6)
+    with pytest.raises(ValueError, match="shape"):
+        propagate_cuda.greedy_columns_batched([small[:, :3].contiguous()], [0], 1e-6)
+
+
+@pytest.mark.parametrize("kernel", ["xie", "dipole"])
+def test_replay_batched_lanes_equal_single_launches(cuda_device, kernel):
+    """Clouds of 1500, 700, 3001 and 129 points with 3, 1, 5 and 3 orders of
+    unequal lengths (one order set over repeated indices, one empty), then
+    20 clouds of 3 orders: 60 lanes, more than one blocked loop takes."""
+    r = np.random.default_rng(47)
+    sizes = (1500, 700, 3001, 129)
+    Ts = (3, 1, 5, 3)
+    steps = (1500, 333, 2000, 0)
+    mats, orders = [], []
+    for n, T, S in zip(sizes, Ts, steps):
+        pc = torch.as_tensor(sphere(n, 48 + n), device=cuda_device)
+        mats.append(fields.xie_interaction_matrix(pc) if kernel == "xie"
+                    else fields.dipole_interaction_matrix(pc))
+        o = np.stack([np.concatenate([r.permutation(n), r.permutation(n)])[:S]
+                      for _ in range(T)]).reshape(T, S)
+        orders.append(torch.as_tensor(o, device=cuda_device))
+    orders[2][:, 1600:1700] = orders[2][:, 40:140]
+    many_m = [fields.xie_interaction_matrix(torch.as_tensor(sphere(300, 60 + b),
+                                                            device=cuda_device))
+              for b in range(20)]
+    many_o = [torch.as_tensor(np.stack([r.permutation(300) for _ in range(3)]),
+                              device=cuda_device) for _ in range(20)]
+    for I_list, o_list in ((mats, orders), (many_m, many_o)):
+        got = propagate_cuda.replay_batched(I_list, o_list)
+        for I, o, (w, inter) in zip(I_list, o_list, got):
+            w1, i1 = propagate_cuda.replay(I, o)
+            assert torch.equal(w, w1) and torch.equal(inter, i1)
+            if I.shape[0] <= 1500 and o.shape[1]:
+                wp, ip = propagate.replay_plain(I, o)
+                assert torch.equal(w, wp) and torch.equal(inter < 0, ip < 0)
+
+
+def test_batched_paths_take_kernels_only(cuda_device):
+    counts = (fields_cuda.LAUNCHES, propagate_cuda.LAUNCHES,
+              fields.PLAIN_CUDA_CALLS, propagate.PLAIN_CUDA_CALLS)
+    for c in counts:
+        c.update({k: 0 for k in c})
+    clouds = [sphere(n, 70 + n) for n in (2000, 3000, 2500)]
+    got = propagate.orient_clouds_batched(clouds, diffuse=True, device=cuda_device)
+    want = propagate.orient_clouds_batched(clouds, diffuse=True, device="cpu")
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    pcs = [_ellipsoid(n, 71 + n) for n in (1500, 2200)]
+    orders = [propagate.bfs_orders(pc, 0, times=3)[0] for pc in pcs]
+    flips = propagate.xie_in_order_batched(pcs, orders, device=cuda_device)
+    for pc, o, f in zip(pcs, orders, flips):
+        assert np.array_equal(f, propagate.xie_in_order_batched(
+            [pc], [o], device="cpu")[0])
+    assert propagate_cuda.LAUNCHES["greedy_columns_batched"] == 1
+    assert propagate_cuda.LAUNCHES["replay_batched"] == 1
+    assert fields_cuda.LAUNCHES["dipole_potential"] == 3
+    assert not any(fields.PLAIN_CUDA_CALLS.values())
+    assert not any(propagate.PLAIN_CUDA_CALLS.values())
+
+
+def test_server_round_trip_on_cuda(cuda_device, tmp_path):
+    import socket
+    import threading
+    import time
+
+    from dipole_tpu_torch.serve import handlers, protocol
+    from dipole_tpu_torch.serve.server_para import Server
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    srv = Server(host="127.0.0.1", port=port, log_dir=str(tmp_path), device="cuda")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    xyz = _ellipsoid(3000, 72)[:, :3].astype(np.float64)
+    cfg = {"max_nn": 30, "eps": 1e-2, "diffuse": False, "times": 3, "knn_mask": -1,
+           "C": 3}
+    try:
+        for _ in range(100):
+            try:
+                out = protocol.request("127.0.0.1", port, "tree_xie_propagation", xyz,
+                                       cfg)
+                break
+            except ConnectionRefusedError:
+                time.sleep(0.05)
+        want = handlers.dispatch("tree_xie_propagation", xyz, dict(cfg), device="cuda")
+        assert np.array_equal(out, want)
+        out = protocol.request("127.0.0.1", port, "simple_estimate", xyz,
+                               {"diffuse": True})
+        assert out.shape == (3000, 6) and np.isfinite(out).all()
+        assert srv.batcher.jobs_run == 3
+    finally:
+        srv.stop()
+

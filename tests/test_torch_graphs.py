@@ -19,6 +19,7 @@ from dipole_tpu_torch import api, graphs, native
 from dipole_tpu_torch.ops import _build, solve
 from dipole_tpu_torch.ops.metrics import sign_agreement
 from dipole_tpu_torch.serve import handlers
+from dipole_tpu_torch.serve.batching import MicroBatcher
 from tests.conftest import make_sphere, scramble_signs
 
 
@@ -168,9 +169,12 @@ def test_dispatch_placeholder_batcher_and_unknown():
     assert logged == ["warning"]
     with pytest.raises(ValueError, match="Unknown method"):
         handlers.dispatch("nope", xyz, {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        handlers.dispatch("simple_estimate", np.zeros((40, 3)), {}, batcher=object(),
-                          device="cpu")
+    # a batcher routes simple_estimate through the micro-batched core
+    b = MicroBatcher(window_s=0.0)
+    gt = _ellipsoid(60, 80)
+    out = handlers.dispatch("simple_estimate", gt[:, :3].astype(np.float64), {},
+                            batcher=b, device="cpu")
+    assert out.shape == (60, 6) and b.jobs_run == 1
     with pytest.raises(NotImplementedError, match="multi-device"):
         handlers.set_mesh(4)
     handlers.set_mesh(1)

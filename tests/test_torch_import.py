@@ -28,6 +28,8 @@ import dipole_tpu_torch.graphs, dipole_tpu_torch.ops.solve
 import dipole_tpu_torch.serve.handlers, dipole_tpu_torch.pipelines.graph_dipole
 import dipole_tpu_torch.cli.graph_dipole, dipole_tpu_torch.ops.propagate_cuda
 import dipole_tpu_torch.tools.mxu_field_experiment
+import dipole_tpu_torch.serve.protocol, dipole_tpu_torch.serve.batching
+import dipole_tpu_torch.serve.server, dipole_tpu_torch.serve.server_para
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "dipole_tpu" or m.startswith("dipole_tpu.")]
