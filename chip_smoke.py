@@ -121,7 +121,29 @@ Phases, one JSON line each:
                 replies equal the serial handler, GT agreement >= 0.95; one
                 line a wave: its wall seconds, the same requests through
                 dispatch one after another, jobs per batch, p50 and max
-                latency of a request. Then the tool `python -m
+                latency of a request. Then the train phase:
+                train.train_on_clouds with the fixers' recipe A
+                (tools/train_r6.py) at batch 16, bucket 512, pool 0.6, lr
+                1e-3, 40 steps, on the 199 mined states of
+                train_data/mined_states_r4.npz and the 10k metaball hand
+                patched by patches_from_cloud: the loss history, the kNN
+                and FPS launched, no plain call; before it the same step
+                taken apart on a fresh model (host batch assembly, forward,
+                backward, optimizer: the first step's seconds and the median
+                of steps 5-39, one step's launches); one step traced
+                (torch.profiler: idle share, top kernels); one loss and
+                backward with the kernels against one with the plain kNN and
+                FPS (loss within 1e-6 relative, each gradient within 1e-5 of
+                its max |g|: the gathers' backward is an atomic index_add);
+                the fixed 16 x 512 make_batch trained 60 steps at lr 3e-3
+                must reach max(acc of the last 10) > min(0.95, base +
+                0.15); save_state_dict -> PointCNN.from_files reloads logits
+                bit-equal. Then the torch_rng phase: api.orient_patches on
+                the 10k hand with the hand demo's flags and torch_rng=1,
+                twice: identical outputs, GT agreement >= 0.9, every draw
+                from the seed-1 stream, whose first 32 randint(1000) must be
+                TORCH_RNG_FIRST_32 (the JAX package's, pinned by
+                tests/test_torch_torch_rng.py). Then the tool `python -m
                 dipole_tpu_torch.tools.mxu_field_experiment` through its
                 main() at 65536 x 262144: GPairs/s of "current" (field.cu)
                 and both tensor-core kernels, their rel max diff and sign
@@ -235,8 +257,15 @@ MXU_APART = 0.02
 # control that the limits above must reject
 MXU_CONTROL = ROOT / "dipole_tpu_torch" / "_build" / "control" / "libfield_mma_1pass.so"
 MODELS = [ROOT / "pre_trained_tpu" / f"dipole_{i}.pt" for i in range(3)]
+# the reference's FPS-start stream after torch.manual_seed(1): its first 32
+# randint(1000) draws (tests/test_torch_torch_rng.py holds them to the JAX
+# package's TorchMT19937(1))
+TORCH_RNG_FIRST_32 = (845, 139, 124, 368, 263, 313, 491, 341, 759, 432, 248, 249,
+                      516, 943, 13, 340, 302, 721, 242, 716, 750, 493, 346, 204,
+                      723, 676, 674, 652, 829, 254, 18, 996)
 # launch counts of each main-path run, by its label
 RUN_COUNTS: dict = {}
+CARD: dict = {}               # the nvidia-smi name and power limit, for the timed lines
 
 KERNELS = {
     "dipole_potential": ("dipole_tpu_torch/csrc/potential.cu",
@@ -433,6 +462,7 @@ def phase_device() -> dict:
             "python": sys.version.split()[0]}
     emit(info)
     print(smi.splitlines()[0], flush=True)
+    CARD["nvidia_smi"] = smi.splitlines()[0]
     return info
 
 
@@ -2500,6 +2530,321 @@ def phase_timing_mxu(tool: dict, plain_ms: dict, dev) -> dict:
     return res
 
 
+
+# ---- the training slice: PointCNN training and the torch_rng replay ----
+
+TRAIN_RECIPE_A = dict(region_flip=0.9, region_draws=2, point_flip=0.4,
+                      scramble=0.0, class_balance=True, gauge_free=True)
+TRAIN_KW = dict(steps=40, batch=16, bucket=512, pool=0.6, learning_rate=1e-3)
+
+
+def _mined_states() -> list:
+    """train_data/mined_states_r4.npz's 199 (patch, labels) states."""
+    z = np.load(ROOT / "train_data" / "mined_states_r4.npz")
+    off = np.concatenate([[0], np.cumsum(z["lengths"])])
+    return [(z["points"][a:b], z["labels"][a:b]) for a, b in zip(off[:-1], off[1:])]
+
+
+def _step_split_timer():
+    """A timer for train_on_clouds' timer= hook: each part of each step
+    (assembly, forward, backward, optimizer) ended by a synchronize, its
+    seconds kept per step in `timer.parts`."""
+    import contextlib
+
+    parts = {"assembly": [], "forward": [], "backward": [], "optimizer": []}
+
+    @contextlib.contextmanager
+    def timer(label):
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        parts[label].append(time.perf_counter() - t0)
+
+    timer.parts = parts
+    return timer
+
+
+def _split_summary(parts: dict) -> dict:
+    """The first step's seconds and the median ms of steps 5 on, per part
+    and for the whole step (the parts' sum)."""
+    parts = dict(parts, step=list(np.sum([parts[k] for k in parts], axis=0)))
+    return {"first_step_s": {k: v[0] for k, v in parts.items()},
+            "median_ms_steps_5_on": {k: float(np.median(v[5:])) * 1e3
+                                     for k, v in parts.items()}}
+
+
+def _profile_step(model, data, dev) -> dict:
+    """One training step (assembly on the host, forward, backward,
+    optimizer) under torch.profiler: the device's idle share of the step's
+    wall time and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dipole_tpu_torch import train
+    from dipole_tpu_torch.models.pointcnn import _pad_sizes, key_starts
+    from dipole_tpu_torch.utils import prng
+
+    bucket, pool = TRAIN_KW["bucket"], TRAIN_KW["pool"]
+    _opt, step = train.make_train_step(model, TRAIN_KW["learning_rate"], 40,
+                                       class_balance=True, gauge_free=True)
+    rng = np.random.default_rng(SEED + 41)
+    m1, _ = _pad_sizes(bucket, pool)
+
+    def one():
+        pc, lab, valid = train.assemble_batch(data, TRAIN_KW["batch"], bucket, rng)
+        return step(pc, lab, valid, key_starts(prng.prng_key(SEED + 41),
+                                               valid.sum(1), pool, m1))
+
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                             "calls": e.count} for e in top]}
+
+
+def _plain_searches():
+    """pointcnn's kNN and FPS swapped for their plain versions (the
+    kernel-against-plain step); returns the restore function."""
+    from dipole_tpu_torch.models import pointcnn
+    from dipole_tpu_torch.ops import neighbors
+
+    saved = (pointcnn.knn_with_dist, pointcnn.fps_masked_batch)
+    pointcnn.knn_with_dist = neighbors.knn_with_dist_plain
+    pointcnn.fps_masked_batch = neighbors.fps_masked_batch_plain
+
+    def restore():
+        pointcnn.knn_with_dist, pointcnn.fps_masked_batch = saved
+    return restore
+
+
+def _step_kernel_vs_plain(model, data, dev) -> dict:
+    """One loss and backward with the kNN and FPS kernels and one with their
+    plain versions, from the same parameters and batch. Both kernels are
+    bit-equal to their plain versions, so the two graphs are the same, and
+    the backward is deterministic: the gathers' backward is index_put's
+    accumulate, which sorts its indices (indexing_backward_kernel, no
+    atomics). The loss and every gradient are held bit-equal, which is
+    inside the 1e-6 (loss, relative) and 1e-5 (of max |g|) limits.
+    torch.use_deterministic_algorithms is not switched on."""
+    import copy
+
+    from dipole_tpu_torch import train
+    from dipole_tpu_torch.models.pointcnn import _pad_sizes, key_starts
+    from dipole_tpu_torch.utils import prng
+
+    bucket, pool = TRAIN_KW["bucket"], TRAIN_KW["pool"]
+    rng = np.random.default_rng(SEED + 42)
+    pc, lab, valid = train.assemble_batch(data, TRAIN_KW["batch"], bucket, rng,
+                                          region_flip=0.9, point_flip=0.4)
+    starts = key_starts(prng.prng_key(SEED + 42), valid.sum(1), pool,
+                        _pad_sizes(bucket, pool)[0])
+    out = {}
+    for label in ("kernel", "plain"):
+        m = copy.deepcopy(model)
+        restore = _plain_searches() if label == "plain" else (lambda: None)
+        try:
+            loss, _ = train.loss_fn(m, torch.as_tensor(pc, device=dev),
+                                    torch.as_tensor(lab, device=dev),
+                                    torch.as_tensor(valid, device=dev), starts,
+                                    class_balance=True, gauge_free=True)
+            loss.backward()
+        finally:
+            restore()
+        out[label] = (float(loss.detach()), {k: p.grad for k, p in m.named_parameters()
+                                    if p.grad is not None})
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    grad_rel = max(float((gk[k] - gp[k]).abs().max()) / max(float(gp[k].abs().max()), 1e-30)
+                   for k in gp)
+    require(set(gk) == set(gp), "kernel and plain steps differ in their gradients")
+    require(lk == lp, f"train step: kernel loss {lk} against plain {lp}")
+    require(grad_rel == 0.0, f"train step: gradients differ by {grad_rel} of max |g|")
+    return {"loss_kernel": lk, "loss_plain": lp, "loss_rel_diff": loss_rel,
+            "grad_max_rel_diff": grad_rel, "bit_equal": True}
+
+
+def _fixed_batch(dev) -> dict:
+    """tests/test_train_checkpoint.py:64-91 on the card at full width: a
+    fixed 16 x 512 make_batch, 60 steps at lr 3e-3 from the calibrated
+    init, fixed FPS starts; max(acc of the last 10) > min(0.95, base + 0.15)."""
+    from dipole_tpu_torch import train
+    from dipole_tpu_torch.models.pointcnn import _pad_sizes, key_starts
+    from dipole_tpu_torch.utils import prng
+
+    n, pool = TRAIN_KW["bucket"], TRAIN_KW["pool"]
+    model = train._fresh_model(prng.prng_key(0), train._probe_patch(0, n), pool, dev)
+    _opt, step = train.make_train_step(model, 3e-3, total_steps=60)
+    pc, labels, valid = train.make_batch(prng.prng_key(1), TRAIN_KW["batch"], n)
+    starts = key_starts(prng.prng_key(2), valid.sum(1), pool, _pad_sizes(n, pool)[0])
+    accs = [float(step(pc, labels, valid, starts)[1]) for _ in range(60)]
+    base = float(labels.mean())
+    require(max(accs[-10:]) > min(0.95, base + 0.15),
+            f"fixed batch: accuracy {accs[-10:]} against base {base}")
+    return {"shape": [TRAIN_KW["batch"], n], "base": base, "acc_last_10": accs[-10:]}
+
+
+def _reload_logits(model, data, dev) -> dict:
+    """save_state_dict -> PointCNN.from_files -> pointcnn_logits_batched:
+    the reloaded model's logits bit-equal to the model in memory's."""
+    import tempfile
+
+    from dipole_tpu_torch.models import checkpoints, pointcnn
+
+    patches = [p for p, _ in data[:64]]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trained.pt"
+        checkpoints.save_state_dict(model.state_dict(), path)
+        path.with_suffix(".txt").write_text(f"pool: {TRAIN_KW['pool']}\n")
+        back = pointcnn.PointCNN.from_files(path).to(dev)
+    got = pointcnn.pointcnn_logits_batched(back, patches)
+    want = pointcnn.pointcnn_logits_batched(model, patches)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    require(same, "reloaded checkpoint: logits differ from the model in memory")
+    require(back.content_digest == model.content_digest, "reloaded digest differs")
+    return {"patches": len(patches), "bit_equal": same}
+
+
+def phase_train(hand10: np.ndarray, launches, dev) -> dict:
+    """PointCNN training on the card: train_on_clouds with the fixers'
+    recipe A (tools/train_r6.py:41-42, :94-99) at batch 16, bucket 512,
+    pool 0.6, lr 1e-3, 40 steps, on the 199 mined states
+    (train_data/mined_states_r4.npz) and the 10k metaball hand (exact
+    normals) written as a .xyz and patched by patches_from_cloud; launch
+    counts reset just before and read just after, and the launches of its
+    second step read from their difference at the step's two snapshots.
+    Before it, the same call with a synchronizing timer= takes each step
+    apart; after it, one step traced, the kernel-against-plain step, the
+    fixed-batch criterion and the checkpoint round trip."""
+    import tempfile
+
+    from dipole_tpu_torch import train
+    from dipole_tpu_torch.utils.io import export_pc
+
+    mined = _mined_states()
+    stamps, step_counts = [], []
+
+    def snap(step, _model):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if step <= 2:
+            step_counts.append(_read_counts()[0])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hand = Path(tmp) / "hand10k.xyz"
+        export_pc(hand10, hand)
+        data = mined + train.patches_from_cloud(hand, device=dev)
+        timer = _step_split_timer()
+        train.train_on_clouds([str(hand)], extra_data=mined, verbose=False,
+                              device=dev, timer=timer, **TRAIN_KW, **TRAIN_RECIPE_A)
+        split = _split_summary(timer.parts)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        model, history, _ = train.train_on_clouds(
+            [str(hand)], extra_data=mined, verbose=False, device=dev,
+            snapshot_every=1, snapshot_fn=snap, **TRAIN_KW, **TRAIN_RECIPE_A)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, plain = _read_counts()
+    label = "train_on_clouds_recipe_a"
+    RUN_COUNTS[label] = counts
+    for name in ("knn", "fps"):
+        require(counts[name] > 0, f"{label}: kernel {name} not launched")
+        launches[name] = launches.get(name, 0) + counts[name]
+    require(not any(plain.values()), f"{label}: plain version called on CUDA: {plain}")
+    losses = [h[0] for h in history]
+    require(len(history) == TRAIN_KW["steps"] and bool(np.isfinite(losses).all()),
+            f"{label}: non-finite loss {losses}")
+    split["launches_per_step"] = {k: step_counts[1][k] - step_counts[0][k]
+                                  for k in ("knn", "fps")}
+    step_ms = np.diff(stamps) * 1e3
+    res = {"phase": "train", "run": label, "card": CARD.get("nvidia_smi"),
+           **TRAIN_KW, "recipe": TRAIN_RECIPE_A,
+           "patches": len(data), "mined_states": len(mined), "seconds": wall,
+           "step_ms_median_steps_5_on_unsynced": float(np.median(step_ms[4:])),
+           "history": history, "launches": counts, "plain_cuda_calls": plain}
+    res["split"] = split
+    res["profile_one_step"] = _profile_step(model, data, dev)
+    res["kernel_vs_plain"] = _step_kernel_vs_plain(model, data, dev)
+    res["fixed_batch"] = _fixed_batch(dev)
+    res["reload"] = _reload_logits(model, data, dev)
+    emit(res)
+    return res
+
+
+def phase_torch_rng(hand10: np.ndarray, launches, dev) -> dict:
+    """api.orient_patches on the 10k hand with the v1 trio, the hand demo's
+    flags and torch_rng=1, twice: identical outputs, GT agreement >= 0.9;
+    the draws it made come from the reference's stream, whose first 32
+    randint(1000) are TORCH_RNG_FIRST_32."""
+    from dipole_tpu_torch import api
+    from dipole_tpu_torch.ops.metrics import sign_agreement
+    from dipole_tpu_torch.utils.timing import timer_factory
+    from dipole_tpu_torch.utils.torch_rng import TorchMT19937
+
+    first = TorchMT19937(1)
+    first = tuple(first.randint(1000) for _ in range(32))
+    require(first == TORCH_RNG_FIRST_32, f"torch_rng stream {first}")
+    draws = []
+
+    class Recording(TorchMT19937):
+        def randint(self, n):
+            v = super().randint(n)
+            draws.append((n, v))
+            return v
+
+    models = [str(m) for m in MODELS]
+    runs, seconds = [], []
+    api.TorchMT19937, saved = Recording, api.TorchMT19937
+    try:
+        for i in range(2):
+            timer = timer_factory()
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            runs.append(api.orient_patches(hand10[:, :3].copy(), models=models,
+                                           timer=timer, device=dev, torch_rng=1,
+                                           **HAND_FLAGS))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if i == 0:
+                counts, plain = _read_counts()
+                n_draws = len(draws)
+    finally:
+        api.TorchMT19937 = saved
+    label = "hand10k_orient_patches_torch_rng"
+    RUN_COUNTS[label] = counts
+    for name in ("dipole_group", "knn", "fps", "dipole_potential"):
+        require(counts[name] > 0, f"{label}: kernel {name} not launched")
+        launches[name] = launches.get(name, 0) + counts[name]
+    require(not any(plain.values()), f"{label}: plain version called on CUDA: {plain}")
+    replay = TorchMT19937(1)
+    require(n_draws > 0 and all(replay.randint(n) == v for n, v in draws[:n_draws]),
+            "torch_rng: the run's draws are not the seed-1 stream")
+    require(draws[:n_draws] == draws[n_draws:], "torch_rng: the runs drew differently")
+    same = bool(np.array_equal(runs[0], runs[1]))
+    agree = sign_agreement(runs[0], hand10)
+    res = {"phase": "torch_rng", "run": label, "card": CARD.get("nvidia_smi"),
+           "seconds": seconds, "stages": timer.stages,
+           "identical_runs": same, "gt_sign_agreement": agree, "draws_per_run": n_draws,
+           "first_draws": draws[:6], "stream_first_32_n1000": list(first),
+           "launches": counts, "plain_cuda_calls": plain}
+    emit(res)
+    require(same, "torch_rng: two runs differ")
+    require(agree >= 0.9, f"torch_rng: GT sign agreement {agree} < 0.9")
+    return res
+
+
 def main(argv) -> int:
     checks_only = "--checks-only" in argv
     info = phase_device()
@@ -2530,6 +2875,8 @@ def main(argv) -> int:
     gt30 = ellipsoid(30000, SEED + 30)
     phase_main_path_xie(gt10, gt30, launches)
     phase_serve(launches)
+    trained = phase_train(hand10, launches, dev)
+    phase_torch_rng(hand10, launches, dev)
     tool = phase_main_path_mxu(launches)
     timing = phase_timing(gt10, gt180, dev)
     timing.update(phase_timing_patches(hand_out, hand180, lion, dev))
@@ -2541,8 +2888,11 @@ def main(argv) -> int:
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = timing[name]
+        per_step = trained["split"]["launches_per_step"]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
+                        **({"launches_per_train_step": per_step[name]}
+                           if name in per_step else {}),
                         "max_abs_err": max(errs[name], t.get("max_abs_err", 0.0)),
                         "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -16,8 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from dipole_tpu_torch.device import resolve_device
-from dipole_tpu_torch.models.inference import (TORCH_RNG_SLICE,
-                                               ensemble_vote_patches,
+from dipole_tpu_torch.models.inference import (ensemble_vote_patches,
                                                load_model_from_file)
 from dipole_tpu_torch.models.pointcnn import PointCNN
 from dipole_tpu_torch.ops import fields, propagate
@@ -26,6 +25,7 @@ from dipole_tpu_torch.ops.patching import divide_pc, fix_n_filter
 from dipole_tpu_torch.utils import prng
 from dipole_tpu_torch.utils.io import Transform, orient_center_np
 from dipole_tpu_torch.utils.timing import timer_factory
+from dipole_tpu_torch.utils.torch_rng import TorchMT19937
 
 __all__ = ["orient", "orient_simple", "orient_simple_batch", "orient_patches",
            "orient_patches_consensus", "orient_large", "transfer_orientation",
@@ -35,7 +35,7 @@ MAX_PATCH_SIZE = 500  # representatives per patch (reference orient_large.py:14)
 
 _MULTI_DEVICE_SLICE = ("multi-device execution (parallel/, the mesh= "
                        "argument) is not ported yet; it is a later slice of "
-                       "the port (ROADMAP.md, 'Multi-device')")
+                       "the port (ROADMAP.md §1 item 4, 'Multi-device')")
 
 
 def resolve_mesh(mesh):
@@ -165,13 +165,20 @@ def orient_patches(points, models=(), iters: int = 100,
     sign fix. The options are the JAX package's: vote_starts, fps_starts
     ('rng' | 'centroid'), vote_margin (flip only where P(flip) < 0.5 -
     margin), fix_models / fix_margin / fix_when / fix_vote / fix_stats (the
-    staged per-point fix pass), vote_seed (base seed of the vote keys).
-    torch_rng (the reference's MT19937 replay) is a later slice and
-    raises."""
+    staged per-point fix pass), vote_seed (base seed of the vote keys),
+    torch_rng (an int seed: the main vote's FPS starts replay the
+    reference's torch.manual_seed(seed) stream, one stream a call shared by
+    every iteration; the fix pass keeps its threefry keys)."""
+    if torch_rng is not None and int(vote_starts) != 1:
+        raise ValueError("vote_starts > 1 is incompatible with torch_rng "
+                         "replay (one start per model by definition)")
+    if torch_rng is not None and fps_starts != "rng":
+        raise ValueError("fps_starts='centroid' is incompatible with "
+                         "torch_rng replay (the replayed stream defines "
+                         "the starts)")
     dev = resolve_device(device)
     resolve_mesh(mesh)
-    if torch_rng is not None:
-        raise NotImplementedError(TORCH_RNG_SLICE)
+    rng_stream = None if torch_rng is None else TorchMT19937(int(torch_rng))
     _check_vote_flags(fix_when, fix_vote)
     stage_timer = timer or timer_factory()
     pc = np.asarray(points, dtype=np.float32)
@@ -232,7 +239,8 @@ def orient_patches(points, models=(), iters: int = 100,
                 key, sub = prng.split(key, 2)
                 votes = ensemble_vote_patches(
                     models, [input_pc[pidx] for _, pidx in patch_indices],
-                    key=sub, vote_starts=vote_starts, fps_starts=fps_starts)
+                    key=sub, torch_rng=rng_stream, vote_starts=vote_starts,
+                    fps_starts=fps_starts)
                 for (_, pidx), (flip, probs) in zip(patch_indices, votes):
                     if vote_margin:
                         flip = probs < (0.5 - vote_margin)

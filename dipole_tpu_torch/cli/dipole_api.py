@@ -13,6 +13,7 @@ from pathlib import Path
 
 from dipole_tpu_torch.cli import orient_large as _orient_large
 from dipole_tpu_torch.utils import config
+from dipole_tpu_torch.utils.warmup import ensure_warm
 
 DEFAULT_MODELS = [Path(__file__).resolve().parents[2] / "pre_trained_tpu"
                   / f"dipole_{i}.pt" for i in range(3)]
@@ -49,6 +50,7 @@ def main(argv=None):
     if opts.pc is None:
         raise SystemExit("dipole_api: --pc is required to run")
     config.export_options(opts)
+    ensure_warm(device=opts.device)  # first run on a machine with a card
     orient_large(opts)
 
 

@@ -17,6 +17,7 @@ from dipole_tpu_torch import api
 from dipole_tpu_torch.utils import config
 from dipole_tpu_torch.utils.io import export_pc, load_xyz
 from dipole_tpu_torch.utils.timing import timer_factory
+from dipole_tpu_torch.utils.warmup import ensure_warm
 
 
 def run(opts):
@@ -51,6 +52,7 @@ def run(opts):
 def main(argv=None):
     opts = config.get_parser().parse_args(argv)
     config.export_options(opts)
+    ensure_warm(device=opts.device)  # first run on a machine with a card
     run(opts)
 
 

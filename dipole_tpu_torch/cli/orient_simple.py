@@ -17,6 +17,7 @@ from dipole_tpu_torch import api
 from dipole_tpu_torch.utils import config
 from dipole_tpu_torch.utils.io import export_pc, load_xyz
 from dipole_tpu_torch.utils.timing import timer_factory
+from dipole_tpu_torch.utils.warmup import ensure_warm
 
 
 def run(opts):
@@ -45,6 +46,7 @@ def main(argv=None):
     opts = config.get_parser().parse_args(argv)
     opts.export_dir.mkdir(exist_ok=True, parents=True)
     config.export_options(opts)
+    ensure_warm(device=opts.device)  # first run on a machine with a card
     run(opts)
 
 

@@ -18,6 +18,7 @@ from dipole_tpu_torch.api import transfer_orientation
 from dipole_tpu_torch.utils import config
 from dipole_tpu_torch.utils.io import export_pc, load_xyz
 from dipole_tpu_torch.utils.timing import timer_factory
+from dipole_tpu_torch.utils.warmup import ensure_warm
 
 
 def run(opts):
@@ -60,6 +61,7 @@ def main(argv=None):
     opts = get_parser().parse_args(argv)
     opts.export_dir = opts.output.parent
     config.export_options(opts)
+    ensure_warm(device=opts.device)  # first run on a machine with a card
     run(opts)
 
 

@@ -184,16 +184,21 @@ class PointCNN(nn.Module):
     def content_digest(self) -> int:
         """Stable 31-bit digest of the weights and pool ratio, the JAX
         package's (pointcnn.py:387-401). Ensemble voting folds it into the
-        per-model keys, so results do not depend on the models' order."""
-        if self._digest is None:
+        per-model keys, so results do not depend on the models' order. It is
+        cached until the weights change: any in-place write to a parameter
+        (an optimizer step, load_state_dict) moves the tensor's version
+        counter, and a new tensor has another address."""
+        state = self.state_dict()
+        stamp = (self.pool, tuple((k, v.data_ptr(), v._version)
+                                  for k, v in state.items()))
+        if self._digest is None or self._digest[0] != stamp:
             h = hashlib.sha256()
-            state = self.state_dict()
             for k in sorted(state):
                 h.update(k.encode())
                 h.update(state[k].detach().cpu().numpy().astype(np.float32).tobytes())
             h.update(np.float32(self.pool).tobytes())
-            self._digest = int.from_bytes(h.digest()[:4], "little") & 0x7FFFFFFF
-        return self._digest
+            self._digest = (stamp, int.from_bytes(h.digest()[:4], "little") & 0x7FFFFFFF)
+        return self._digest[1]
 
     @staticmethod
     def from_files(pt_path, txt_path=None) -> "PointCNN":
@@ -247,21 +252,31 @@ class PointCNN(nn.Module):
         """Padded batched forward: pc (B, Nb, 6), valid (B, Nb) bool, FPS
         starts s1 (B,) within the valid rows and s2 (B,) within the pooled
         ones -> logits (B, Nb, 2). The padded FPS sizes are
-        m1 = ceil(Nb pool), m2 = ceil(m1 pool)."""
-        m1, m2 = _pad_sizes(pc.shape[1], self.pool)
+        m1 = ceil(Nb pool), m2 = ceil(m1 pool). Differentiable in the
+        parameters (the selections are integer)."""
         x, pos1 = _canonicalize(pc, valid)
-        sels = self.fps_selections(pos1, valid, m1, m2, s1, s2)
-        return self.forward_sels(x, pos1, *sels)
+        return self.forward_precanon(x, pos1, valid, s1, s2)
+
+    def forward_precanon(self, x, pos, valid, s1, s2):
+        """The forward on inputs already canonicalized (JAX
+        pointcnn.py:474-479, the torch_rng replay's path): features x
+        (B, Nb, 6), 0 on padding, and positions pos (B, Nb, 3), the sentinel
+        on padding."""
+        m1, m2 = _pad_sizes(x.shape[1], self.pool)
+        sels = self.fps_selections(pos, valid, m1, m2, s1, s2)
+        return self.forward_sels(x, pos, *sels)
 
 
-def from_numpy_params(params: dict, pool: float) -> PointCNN:
-    """PointCNN from a flat parameter dict keyed by the torch names — the
-    JAX package's parameters (dipole_tpu/models/checkpoints.py,
-    PointCNNParams.params) or a checkpoint read as numpy."""
+def from_numpy_params(params: dict, pool: float,
+                      trainable: bool = False) -> PointCNN:
+    """PointCNN on the CPU from a flat parameter dict keyed by the torch
+    names — the JAX package's parameters (dipole_tpu/models/checkpoints.py,
+    PointCNNParams.params), train.init_params or a checkpoint read as numpy.
+    Frozen in eval mode (inference) unless `trainable`."""
     model = PointCNN(pool)
     model.load_state_dict({k: torch.tensor(np.asarray(v, np.float32))
                            for k, v in params.items()}, strict=True)
-    return model.eval().requires_grad_(False)
+    return model if trainable else model.eval().requires_grad_(False)
 
 
 def _bucket(n: int, base: int = 128) -> int:
@@ -324,14 +339,17 @@ def prepare_patch_batches(patches, bucket: int, width: int, device):
 
 @torch.no_grad()
 def pointcnn_logits_batched(model: PointCNN, patches, key=None, bucket=None,
-                            starts=None, prepared=None, device=None) -> list:
+                            starts=None, prepared=None, device=None,
+                            precanon: bool = False) -> list:
     """The forward over many ragged patches (JAX pointcnn.py:606-721):
     patches padded to one bucket and run in chunks of at most
     _forward_width(bucket, pool). starts: optional (len(patches), 2) FPS
     start indices; by default they are derived from `key` (a threefry key,
     default PRNGKey(0)) as the JAX package derives them. prepared: the
     prepare_patch_batches result of this call's patches, bucket and width.
-    Returns a list of (n_i, 2) float32 numpy arrays."""
+    precanon: the patches are already canonicalized (the torch_rng replay,
+    inference._canon_reference): the forward skips its own. Returns a list
+    of (n_i, 2) float32 numpy arrays."""
     patches = [np.asarray(p, np.float32) for p in patches]
     if not patches:
         return []
@@ -358,18 +376,25 @@ def pointcnn_logits_batched(model: PointCNN, patches, key=None, bucket=None,
         st = np.zeros((pc.shape[0], 2), np.int32)
         st[:len(lens)] = starts[lo:lo + len(lens)]
         st = torch.as_tensor(st, device=pc.device)
-        out = model(pc, valid, st[:, 0], st[:, 1]).cpu().numpy()
+        if precanon:
+            pos = torch.where(valid[..., None], pc[..., :3],
+                              torch.full((1, 1, 1), _SENTINEL, device=pc.device))
+            out = model.forward_precanon(pc, pos, valid, st[:, 0], st[:, 1])
+        else:
+            out = model(pc, valid, st[:, 0], st[:, 1])
+        out = out.cpu().numpy()
         for i, n in enumerate(lens):
             results[lo + i] = out[i, :n]
     return results
 
 
-def pointcnn_logits(model: PointCNN, patch, key=None) -> np.ndarray:
-    """Per-point 2-class logits for one (n, 6) patch; the FPS starts come
-    from split(key) as in the JAX package's single-patch forward
+def pointcnn_logits(model: PointCNN, patch, key=None, bucket=None) -> np.ndarray:
+    """Per-point 2-class logits for one (n, 6) patch padded to `bucket`
+    (default the power of two from 128 up); the FPS starts come from
+    split(key) as in the JAX package's single-patch forward
     (pointcnn.py:342-353, 724-736)."""
     patch = np.asarray(patch, np.float32)
-    n, nb = len(patch), _bucket(len(patch))
+    n, nb = len(patch), bucket or _bucket(len(patch))
     m1, _ = _pad_sizes(nb, model.pool)
     k1, k2 = prng.split(prng.prng_key(0) if key is None else key, 2)
     n2 = min(int(math.ceil(np.float32(model.pool) * np.float32(n))), m1)

@@ -21,7 +21,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["knn", "bfs_route_csr", "flip_local_search", "hoppe_orient_signs",
-           "load"]
+           "pca_normals", "load", "available"]
 
 _REPO = Path(__file__).resolve().parent.parent
 _NATIVE_DIR = _REPO / "native"
@@ -112,6 +112,15 @@ def _load():
     raise RuntimeError("native library unavailable: " + "; ".join(errors))
 
 
+def available() -> bool:
+    """Whether the native library loads (or builds) on this host."""
+    try:
+        load()
+    except RuntimeError:
+        return False
+    return True
+
+
 def knn(base: np.ndarray, query: np.ndarray, k: int):
     """(indices (m,k) int64, squared distances (m,k) float32), sorted
     ascending — dipole_tpu/native.py:69-92 without its scipy fallback."""
@@ -171,3 +180,24 @@ def flip_local_search(M: np.ndarray, x0: np.ndarray, minimize: bool,
         -1 if minimize else 1, x.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         max_rounds)
     return x
+
+
+def pca_normals(pos: np.ndarray, idx: np.ndarray, d2: np.ndarray,
+                r2: float) -> np.ndarray:
+    """Smallest-eigenvector normals of each point's neighbours idx (n, k)
+    whose squared distance d2 is at most r2, in C++ with float64 sums and
+    the closed-form 3x3 eigensolver (dn_pca_normals,
+    native/dipole_native.cpp:386; dipole_tpu/native.py:178-200). Returns
+    (n, 3) float32."""
+    pos = np.ascontiguousarray(np.asarray(pos, np.float32)[:, :3])
+    idx = np.ascontiguousarray(np.asarray(idx, np.int32))
+    d2 = np.ascontiguousarray(np.asarray(d2, np.float32))
+    n, k = idx.shape
+    if d2.shape != (n, k) or (n and not 0 <= idx.min() <= idx.max() < len(pos)):
+        raise ValueError(f"idx {idx.shape} and d2 {d2.shape} must match, with "
+                         f"indices in [0, {len(pos)})")
+    lib = load()
+    out = np.empty((n, 3), np.float32)
+    lib.dn_pca_normals(pos.ctypes.data_as(_F), n, idx.ctypes.data_as(_I),
+                       d2.ctypes.data_as(_F), k, float(r2), out.ctypes.data_as(_F))
+    return out

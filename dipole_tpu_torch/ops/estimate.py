@@ -1,5 +1,5 @@
 """PCA utilities and unoriented normal estimation — the port of
-dipole_tpu/ops/estimate.py:27-116.
+dipole_tpu/ops/estimate.py:27-138.
 
 Neighbour search runs on the native host KD-tree (the same library the JAX
 package calls); the masked covariance and the closed-form 3x3
@@ -15,9 +15,13 @@ import torch
 
 from dipole_tpu_torch import native
 from dipole_tpu_torch.device import resolve_device
-from dipole_tpu_torch.ops.linalg import smallest_eigvec_3x3
+from dipole_tpu_torch.ops.fields import sqrt_rn
+from dipole_tpu_torch.ops.linalg import eigh3x3, smallest_eigvec_3x3
+from dipole_tpu_torch.ops.neighbors import knn
+from dipole_tpu_torch.utils.io import orient_center_np
 
-__all__ = ["pca_eigen_values", "estimate_normals"]
+__all__ = ["pca_eigen_values", "rotate_to_principle_components",
+           "estimate_normals", "estimate_normals_knn", "orient_center"]
 
 
 def pca_eigen_values(x):
@@ -28,6 +32,27 @@ def pca_eigen_values(x):
     cov = temp.T @ temp / x.shape[0]
     e, v = np.linalg.eigh(cov)
     return e[0:1].astype(np.float32), v[:, 0].astype(np.float32)
+
+
+def rotate_to_principle_components(x, scale: bool = True,
+                                   device="cuda") -> torch.Tensor:
+    """A cloud rotated into its PCA frame (reference util.py:503-517, JAX
+    estimate.py:37-53): (N, 3) or (N, 6) (normals rotated too, unscaled),
+    xyz divided by the square root of the largest eigenvalue when `scale`.
+    On `device`; device=None leaves a tensor where it lies."""
+    x = torch.as_tensor(x)
+    if device is not None:
+        x = x.to(resolve_device(device))
+    x = x.to(torch.float32)
+    xyz = x[:, :3]
+    temp = xyz - xyz.mean(dim=0)[None, :]
+    e, v = eigh3x3(temp.T @ temp / x.shape[0])
+    rotated = xyz @ v
+    if scale:
+        rotated = rotated / sqrt_rn(e[2:3])
+    if x.shape[1] == 6:
+        rotated = torch.cat([rotated, x[:, 3:6] @ v], dim=-1)
+    return rotated
 
 
 def masked_pca_normals(neigh: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -61,3 +86,22 @@ def estimate_normals(inputpc, max_nn: int = 30, radius: float = 0.1,
         flip = (inputpc[:, 3:6] * out[:, 3:6]).sum(axis=-1) < 0
         out[flip, 3:6] *= -1
     return out
+
+
+def estimate_normals_knn(inputpc, max_nn: int = 30, device="cuda") -> np.ndarray:
+    """Unoriented PCA normals over the max_nn nearest neighbours with no
+    radius filter (the reference's torch_cluster path, util.py:520-529; JAX
+    estimate.py:119-128), the exact kNN on `device`. Returns (N, 6)."""
+    dev = resolve_device(device)
+    pos = torch.as_tensor(np.asarray(inputpc, np.float32)[:, :3], device=dev)
+    idx, _ = knn(pos, pos, min(max_nn, len(pos)), device=None)
+    neigh = pos[idx.long()]
+    normals = masked_pca_normals(neigh, torch.ones(neigh.shape[:2], dtype=torch.bool,
+                                                   device=dev))
+    return torch.cat([pos, normals], dim=1).cpu().numpy()
+
+
+def orient_center(pred: np.ndarray) -> np.ndarray:
+    """Normals flipped toward the centroid-outward direction (reference
+    util.py:39-44). Returns a new array."""
+    return orient_center_np(pred)

@@ -17,17 +17,27 @@ distance, invalid points parked at -1. The kernels make the same decisions
 bit for bit. The JAX package on the CPU may contract a multiply and an add
 into one FMA, which moves d2 by an ulp and can swap near-ties: against it,
 selections are tie-equivalent.
+
+The general-purpose searches of dipole_tpu/ops/neighbors.py:64-140 (knn,
+knn_graph, fps, knn_interpolate) are XLA code in the JAX package, not Pallas,
+so here they are plain torch on `device` (the card by default, as the JAX
+twins run on the default accelerator; device=None keeps a tensor where it
+lies), with the same decisions: kNN sorted by distance, ties to the lower
+index; FPS from its start, the first farthest point.
 """
 from __future__ import annotations
 
 import torch
 
+from dipole_tpu_torch.device import resolve_device
 from dipole_tpu_torch.ops import _build, neighbors_cuda
 
 __all__ = ["knn_with_dist", "knn_with_dist_plain", "fps_masked_batch",
-           "fps_masked_batch_plain", "PLAIN_CUDA_CALLS"]
+           "fps_masked_batch_plain", "PLAIN_CUDA_CALLS", "knn", "knn_graph",
+           "fps", "knn_interpolate"]
 
 PLAIN_CUDA_CALLS = {"knn": 0, "fps": 0}
+_QUERY_ELEMS = 1 << 24   # query block x base: the d2 block of one knn step
 
 
 def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -70,6 +80,10 @@ def fps_masked_batch_plain(pos: torch.Tensor, valid: torch.Tensor, m: int,
     pos (B, N, 3), valid (B, N) bool, starts (B,) -> (B, m) int32."""
     if pos.is_cuda:
         _build.bump(PLAIN_CUDA_CALLS, "fps")
+    return _fps_scan(pos, valid, m, starts)
+
+
+def _fps_scan(pos, valid, m: int, starts) -> torch.Tensor:
     rows = torch.arange(pos.shape[0], device=pos.device)
     starts = starts.to(device=pos.device, dtype=torch.int64)
 
@@ -102,3 +116,74 @@ def fps_masked_batch(pos: torch.Tensor, valid: torch.Tensor, m: int,
     return neighbors_cuda.fps_masked_batch(
         pos, valid.contiguous(), m,
         starts.to(device=pos.device, dtype=torch.int32).contiguous())
+
+
+def _xyz(x, device) -> torch.Tensor:
+    """The first three columns of x as float32 on `device`; device=None
+    leaves a tensor where it lies (numpy: the CPU)."""
+    x = torch.as_tensor(x)
+    if device is not None:
+        x = x.to(resolve_device(device))
+    return x[:, :3].to(torch.float32).contiguous()
+
+
+def knn(base, query, k: int, device="cuda"):
+    """For each query point, the k nearest base points (JAX
+    neighbors.py:64-75): (indices (Nq, k) int32, squared distances (Nq, k)),
+    ascending, ties to the lower index; k is capped at the base size."""
+    base = _xyz(base, device)
+    query = _xyz(query, base.device)
+    k = min(k, base.shape[0])
+    block = max(1, _QUERY_ELEMS // max(base.shape[0], 1))
+    idx, d2 = [], []
+    for lo in range(0, query.shape[0], block):
+        dd = _sq_dist(query[lo:lo + block, None, :], base[None, :, :])
+        d, i = torch.sort(dd, dim=1, stable=True)
+        idx.append(i[:, :k].to(torch.int32))
+        d2.append(d[:, :k])
+    if not idx:
+        return (torch.zeros((0, k), dtype=torch.int32, device=base.device),
+                torch.zeros((0, k), device=base.device))
+    return torch.cat(idx), torch.cat(d2)
+
+
+def knn_graph(pos, k: int, loop: bool = True, device="cuda") -> torch.Tensor:
+    """Neighbour table (N, k) with self when loop (the XConv convention,
+    reference models/XConv.py:124-126; JAX neighbors.py:78-93); without
+    loop, k + 1 are searched and the self column dropped."""
+    pos = _xyz(pos, device)
+    if loop:
+        return knn(pos, pos, k, device=None)[0]
+    idx, _ = knn(pos, pos, min(k + 1, pos.shape[0]), device=None)
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    # stable-compact each row (self may not come first under ties)
+    order = torch.argsort((idx == rows).to(torch.uint8), dim=1, stable=True)
+    return torch.gather(idx, 1, order)[:, :k]
+
+
+def fps(pos, ratio: float, start: int | None = None, key=None,
+        device="cuda") -> torch.Tensor:
+    """Farthest point sampling of ceil(ratio N) indices (JAX
+    neighbors.py:115-128): from `start`, else from
+    prng.randint(key, (), 0, N) when a threefry key is given, else 0.
+    (m,) int32."""
+    from dipole_tpu_torch.utils import prng
+
+    pos = _xyz(pos, device)
+    n = pos.shape[0]
+    m = max(1, min(int(-(-n * ratio // 1)), n))
+    if start is None:
+        start = int(prng.randint(key, (), 0, n)) if key is not None else 0
+    valid = torch.ones((1, n), dtype=torch.bool, device=pos.device)
+    return _fps_scan(pos[None], valid, m, torch.tensor([start]))[0]
+
+
+def knn_interpolate(x, pos_x, pos_y, k: int = 16,
+                    device="cuda") -> torch.Tensor:
+    """Inverse-squared-distance kNN interpolation of features x from pos_x
+    onto pos_y (JAX neighbors.py:131-140): w = 1 / max(d^2, 1e-16)."""
+    idx, d2 = knn(pos_x, pos_y, k, device=device)
+    x = torch.as_tensor(x).to(device=idx.device, dtype=torch.float32)
+    w = 1.0 / torch.clamp(d2, min=1e-16)
+    num = (x[idx.long()] * w[..., None]).sum(dim=1)
+    return num / w.sum(dim=1, keepdim=True)

@@ -16,6 +16,10 @@ jax.vmap over them would. Functions:
     split2(keys)            jax.vmap(jax.random.split)(keys) as two batches
     fold_in(key, data)      jax.random.fold_in(key, data)
     uniform(keys)           jax.random.uniform(key)      (float32 in [0, 1))
+    uniform_shape(key, shape, minval, maxval)
+                            jax.random.uniform(key, shape, float32, minval, maxval)
+    randint(key, shape, minval, maxval)
+                            jax.random.randint(key, shape, minval, maxval) (int32)
     random_valid_index(keys, n_valid)
                             pointcnn._random_valid_index on a prefix mask
 """
@@ -24,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["threefry2x32", "prng_key", "split", "split2", "fold_in",
-           "uniform", "random_valid_index"]
+           "uniform", "uniform_shape", "randint", "random_valid_index"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -90,6 +94,43 @@ def uniform(keys):
     b0, b1 = threefry2x32(keys, zero, zero)
     bits = np.asarray((b0 ^ b1) >> np.uint32(9) | np.uint32(0x3F800000))
     return bits.view(np.float32) - np.float32(1.0)
+
+
+def _random_bits(key, shape) -> np.ndarray:
+    """jax.random.bits(key, shape) in 32 bits: element i hashes the counter
+    pair (hi(i), lo(i)) of its flat index and keeps bits0 ^ bits1."""
+    i = np.arange(int(np.prod(shape, dtype=np.int64)), dtype=np.uint64)
+    b0, b1 = threefry2x32(key, (i >> np.uint64(32)).astype(np.uint32),
+                          (i & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    return (b0 ^ b1).reshape(shape)
+
+
+def uniform_shape(key, shape, minval=0.0, maxval=1.0) -> np.ndarray:
+    """jax.random.uniform(key, shape, float32, minval, maxval): floats in
+    [1, 2) from the 23 high bits, minus 1, then floats * (max - min) + min
+    and max(min, .), each rounded to float32 (the scalar `uniform` is
+    shape () with the default range)."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    bits = _random_bits(key, tuple(shape)) >> np.uint32(9) | np.uint32(0x3F800000)
+    floats = bits.view(np.float32) - np.float32(1.0)
+    return np.maximum(lo, floats * (hi - lo) + lo)
+
+
+def randint(key, shape, minval, maxval) -> np.ndarray:
+    """jax.random.randint(key, shape, minval, maxval) in int32: two 32-bit
+    draws from split(key) reduced modulo the span as JAX reduces them, with
+    uint32 wrap-around (a span <= 0 gives minval)."""
+    shape = tuple(shape)
+    k1, k2 = split(key, 2)
+    hi_bits, lo_bits = _random_bits(k1, shape), _random_bits(k2, shape)
+    lo, hi = np.int64(minval), np.int64(maxval)
+    span = np.uint64(1 if hi <= lo else (hi - lo) & 0xFFFFFFFF)
+    mask = np.uint64(0xFFFFFFFF)
+    mult = np.uint64(2 ** 16) % span
+    mult = (mult * mult & mask) % span
+    off = ((hi_bits.astype(np.uint64) % span) * mult
+           + lo_bits.astype(np.uint64) % span) & mask
+    return (lo + (off % span).astype(np.int64)).astype(np.int32)
 
 
 def random_valid_index(keys, n_valid):

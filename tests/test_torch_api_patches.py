@@ -71,8 +71,12 @@ def test_model_free_patches_and_options():
     stats = {}
     api.orient_patches(pc, models=[CKPT], fix_models=[CKPT], fix_stats=stats, **kw)
     assert len(stats["passes"]) == 1
-    with pytest.raises(NotImplementedError, match="torch_rng"):
-        api.orient_patches(pc, torch_rng=1, **kw)
+    for bad in ({"vote_starts": 2}, {"fps_starts": "centroid"}):
+        with pytest.raises(ValueError, match="torch_rng"):
+            api.orient_patches(pc, torch_rng=1, **bad, **kw)
+        with pytest.raises(ValueError, match="torch_rng"):
+            japi.orient_patches(pc, torch_rng=1, **bad, **{
+                k: v for k, v in kw.items() if k != "device"})
     with pytest.raises(ValueError, match="fix_when"):
         api.orient_patches(pc, fix_when="never", **kw)
     cons = api.orient_patches_consensus(pc, runs=3, **kw)

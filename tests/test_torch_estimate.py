@@ -81,3 +81,52 @@ def test_pca_eigen_values_matches_jax():
     x = make_sphere(200, seed=5)
     for a, b in zip(estimate.pca_eigen_values(x), jest.pca_eigen_values(x)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("cols,scale", [(6, True), (3, True), (3, False)])
+def test_rotate_to_principle_components_matches_jax(cols, scale):
+    """Same closed-form eigenvectors; rotated coordinates to 1e-6 of max."""
+    r = np.random.default_rng(cols + scale)
+    x = (r.normal(size=(500, 6)) * [1, 0.5, 0.2, 1, 1, 1]).astype(np.float32)[:, :cols]
+    want = np.asarray(jest.rotate_to_principle_components(x, scale=scale))
+    got = estimate.rotate_to_principle_components(x, scale=scale,
+                                                  device="cpu").numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("max_nn", [8, 20])
+def test_estimate_normals_knn_matches_jax(max_nn):
+    """Exact kNN (same selections), the same masked PCA: positions equal,
+    normals to 1e-5 up to sign per row."""
+    pc = make_sphere(600, seed=max_nn, noise=0.01)
+    want = jest.estimate_normals_knn(pc, max_nn)
+    got = estimate.estimate_normals_knn(pc, max_nn, device="cpu")
+    np.testing.assert_array_equal(got[:, :3], want[:, :3])
+    _assert_equal_up_to_row_sign(got[:, 3:], want[:, 3:], 1e-5)
+
+
+def test_orient_center_matches_jax():
+    pc = make_sphere(400, seed=3)
+    pc[::3, 3:] *= -1
+    np.testing.assert_array_equal(estimate.orient_center(pc), jest.orient_center(pc))
+
+
+def test_native_pca_normals_matches_masked_pca():
+    """dn_pca_normals (float64 sums) against the JAX package's float32
+    masked PCA on the same neighbourhoods: allclose up to sign per row. The
+    float32 closed form loses ~1e-3 where a neighbourhood is nearly flat
+    (smallest eigenvalue ~1e-4 of the largest), so atol 5e-3 on the worst
+    row, 1e-4 on the median."""
+    if not hasattr(native.load(), "dn_pca_normals"):
+        pytest.skip("native library without dn_pca_normals")
+    assert native.available()
+    pc = make_sphere(2000, seed=2, noise=0.01)
+    pos = pc[:, :3].copy()
+    idx, d2 = native.knn(pos, pos, 30)
+    for r2 in (0.01, 1e9):
+        got = native.pca_normals(pos, idx, d2, r2)
+        want = jest._masked_pca_best(pos[idx], d2 <= r2)
+        row = np.minimum(np.abs(got - want).max(-1), np.abs(got + want).max(-1))
+        assert row.max() <= 5e-3 and np.median(row) <= 1e-4, (row.max(), np.median(row))
+    with pytest.raises(ValueError):
+        native.pca_normals(pos, idx, d2[:, :5], 0.01)

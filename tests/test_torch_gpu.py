@@ -257,6 +257,31 @@ def test_estimate_normals_on_card_matches_cpu(cuda_device):
     assert d.max() <= 1e-5                     # up to the sign of each row
 
 
+def test_public_neighbour_names_run_numpy_on_the_card(cuda_device):
+    """knn, knn_graph, fps, knn_interpolate and rotate_to_principle_components
+    put a numpy input on the card by default, with the CPU's answers."""
+    pos = sphere(500, 11)[:, :3].astype(np.float32)
+    x = np.random.default_rng(3).normal(size=(500, 4)).astype(np.float32)
+    pairs = [(neighbors.knn(pos, pos[:77], 8)[0], neighbors.knn(pos, pos[:77], 8, device="cpu")[0]),
+             (neighbors.knn_graph(pos, 6), neighbors.knn_graph(pos, 6, device="cpu")),
+             (neighbors.fps(pos, 0.3), neighbors.fps(pos, 0.3, device="cpu"))]
+    for got, want in pairs:
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    got = neighbors.knn_interpolate(x, pos, pos[:50], 8)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               neighbors.knn_interpolate(x, pos, pos[:50], 8,
+                                                         device="cpu").numpy(),
+                               rtol=0, atol=1e-6 * np.abs(x).max())
+    flat = pos * np.float32([1.0, 0.5, 0.2])    # well-separated eigenvalues
+    got = estimate.rotate_to_principle_components(flat)
+    assert got.device.type == "cuda"
+    want = estimate.rotate_to_principle_components(flat, device="cpu").numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("cols", [6, 3])
 def test_orient_simple_on_card_matches_cpu(cuda_device, cols):
     pc = sphere(3000, 8)
@@ -999,3 +1024,93 @@ def test_server_round_trip_on_cuda(cuda_device, tmp_path):
     finally:
         srv.stop()
 
+
+
+# ---- training and the torch_rng replay's forward ----
+
+def _train_batch(n_batch=4, bucket=512, pool=0.6):
+    from dipole_tpu_torch import train
+    from dipole_tpu_torch.models import pointcnn
+    from dipole_tpu_torch.utils import prng
+
+    pc, labels, valid = train.make_batch(prng.prng_key(1), n_batch, bucket)
+    valid[1, 450:] = False
+    pc[1, 450:] = 0
+    m1 = int(-(-bucket * pool // 1))
+    return pc, labels, valid, pointcnn.key_starts(prng.prng_key(2), valid.sum(1), pool, m1)
+
+
+def test_train_step_kernels_match_plain(cuda_device, monkeypatch):
+    """One loss and backward with the kNN and FPS kernels and one with their
+    plain versions from the same parameters and batch: both kernels are
+    bit-equal to their plain versions and the backward is deterministic
+    (the gathers' backward is index_put's accumulate, which sorts its
+    indices), so the loss and every gradient are bit-equal."""
+    import copy
+
+    from dipole_tpu_torch import train
+    from dipole_tpu_torch.models import pointcnn
+    from dipole_tpu_torch.utils import prng
+
+    params = train.calibrate_init(train.init_params(prng.prng_key(0)),
+                                  train._probe_patch(0, 512), device=cuda_device)
+    model = pointcnn.from_numpy_params(params, 0.6, trainable=True).to(cuda_device)
+    pc, labels, valid, starts = _train_batch()
+    out = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(pointcnn, "knn_with_dist", neighbors.knn_with_dist_plain)
+            monkeypatch.setattr(pointcnn, "fps_masked_batch",
+                                neighbors.fps_masked_batch_plain)
+        m = copy.deepcopy(model)
+        neighbors_cuda.LAUNCHES.update({k: 0 for k in neighbors_cuda.LAUNCHES})
+        loss, _ = train.loss_fn(m, torch.as_tensor(pc, device=cuda_device),
+                                torch.as_tensor(labels, device=cuda_device),
+                                torch.as_tensor(valid, device=cuda_device), starts,
+                                class_balance=True, gauge_free=True)
+        loss.backward()
+        assert neighbors_cuda.LAUNCHES["knn"] == (0 if plain else 5)
+        assert neighbors_cuda.LAUNCHES["fps"] == (0 if plain else 2)
+        out.append((float(loss.detach()), dict(m.named_parameters())))
+    (lk, mk), (lp, mp) = out
+    assert lk == lp
+    for k, p in mp.items():
+        assert (p.grad is None) == (mk[k].grad is None), k
+        if p.grad is not None:
+            assert torch.equal(mk[k].grad, p.grad), k
+
+
+def test_train_steps_on_card_take_kernels_only(cuda_device):
+    from dipole_tpu_torch import train
+
+    neighbors_cuda.LAUNCHES.update({k: 0 for k in neighbors_cuda.LAUNCHES})
+    neighbors.PLAIN_CUDA_CALLS.update({k: 0 for k in neighbors.PLAIN_CUDA_CALLS})
+    model, history = train.train(steps=3, batch=4, n_points=256,
+                                 device=cuda_device, verbose=False)
+    assert np.isfinite(history).all()
+    assert next(model.parameters()).is_cuda
+    assert neighbors_cuda.LAUNCHES["knn"] >= 15 and neighbors_cuda.LAUNCHES["fps"] >= 6
+    assert not any(neighbors.PLAIN_CUDA_CALLS.values())
+
+
+def test_forward_precanon_on_card_matches_cpu(cuda_device):
+    """The replay's forward (reference-canonicalized patches, explicit
+    starts) on the card against the CPU: the same selections (kNN and FPS
+    bit-equal to their plain versions), logits within 1e-3 (float32 GEMMs
+    in other orders)."""
+    from dipole_tpu_torch.models import inference, pointcnn
+    from dipole_tpu_torch.utils.torch_rng import TorchMT19937
+
+    r = np.random.default_rng(3)
+    patches = [sphere(n, 40 + n, scramble=True) * np.float32(1 + r.random())
+               for n in (500, 128, 77, 300)]
+    canon = [inference._canon_reference(p) for p in patches]
+    card = pointcnn.PointCNN.from_files(CKPT).to(cuda_device)
+    cpu = pointcnn.PointCNN.from_files(CKPT)
+    rng = TorchMT19937(1)
+    starts = np.array([[rng.randint(len(p)), rng.randint(int(np.ceil(cpu.pool * len(p))))]
+                       for p in patches], np.int32)
+    got = pointcnn.pointcnn_logits_batched(card, canon, starts=starts, precanon=True)
+    want = pointcnn.pointcnn_logits_batched(cpu, canon, starts=starts, precanon=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-3)

@@ -161,3 +161,86 @@ def test_fps_refuses_host_starts_outside_the_patch():
     for bad in ([[128, 0]], [[0, m1]], [[-1, 0]], [[0, 0], [0, 0]]):
         with pytest.raises(ValueError, match="starts"):
             pointcnn.pointcnn_logits_batched(model, [patch], starts=np.array(bad))
+
+
+# ---- the general-purpose searches: knn, knn_graph, fps, knn_interpolate ----
+
+from dipole_tpu.ops import neighbors as jneighbors  # noqa: E402
+
+
+def _cloud_with_ties(seed, n):
+    r = np.random.default_rng(seed)
+    pts = r.normal(size=(n, 3)).astype(np.float32)
+    pts[n // 2:] = pts[: n - n // 2]              # every point twice: exact ties
+    return pts
+
+
+@pytest.mark.parametrize("n,nq,k", [(300, 77, 8), (64, 64, 64), (1000, 333, 30),
+                                    (5, 9, 16)])
+def test_knn_matches_jax(n, nq, k):
+    """Ties (duplicated points) to the lower index in both; d2 to 2 ulp."""
+    base = _cloud_with_ties(n, n)
+    query = np.random.default_rng(nq).normal(size=(nq, 3)).astype(np.float32)
+    query[: nq // 3] = base[: nq // 3]
+    ji, jd = jneighbors.knn(base, query, k)
+    ti, td = neighbors.knn(base, query, k, device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=2.4e-7, atol=1e-12)
+
+
+@pytest.mark.parametrize("loop", [True, False])
+def test_knn_graph_matches_jax(loop):
+    pos = _cloud_with_ties(3, 200)
+    np.testing.assert_array_equal(neighbors.knn_graph(pos, 6, loop=loop,
+                                                      device="cpu").numpy(),
+                                  np.asarray(jneighbors.knn_graph(pos, 6, loop=loop)))
+
+
+@pytest.mark.parametrize("ratio,start,seed", [(0.3, None, 3), (0.6, 17, None),
+                                              (1.0, None, None), (0.01, None, 9)])
+def test_fps_matches_jax(ratio, start, seed):
+    """Identical picks from a given start, a key-drawn start
+    (randint(key, (), 0, n)) and the default 0."""
+    pos = np.random.default_rng(4).normal(size=(257, 3)).astype(np.float32)
+    jkey = None if seed is None else jax.random.PRNGKey(seed)
+    want = jneighbors.fps(pos, ratio, start=start, key=jkey)
+    got = neighbors.fps(pos, ratio, start=start,
+                        key=None if jkey is None else np.asarray(jkey),
+                        device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_knn_interpolate_matches_jax():
+    """Weighted means: float32 sums in the same order, to 1e-6 of max |x|."""
+    r = np.random.default_rng(5)
+    pos_x = r.normal(size=(300, 3)).astype(np.float32)
+    pos_y = r.normal(size=(120, 3)).astype(np.float32)
+    pos_y[:10] = pos_x[:10]                       # d2 = 0: the 1e-16 floor
+    x = r.normal(size=(300, 7)).astype(np.float32)
+    for k in (16, 1):
+        np.testing.assert_allclose(
+            neighbors.knn_interpolate(x, pos_x, pos_y, k, device="cpu").numpy(),
+            np.asarray(jneighbors.knn_interpolate(x, pos_x, pos_y, k)),
+            rtol=0, atol=1e-6 * np.abs(x).max())
+
+
+@pytest.mark.parametrize("name", ["knn", "knn_graph", "fps", "knn_interpolate",
+                                  "rotate_to_principle_components"])
+def test_public_names_default_to_the_card(monkeypatch, name):
+    """A numpy call asks for the card, as the JAX twins run on the default
+    accelerator; with none it raises instead of running on the CPU."""
+    from dipole_tpu_torch.ops import estimate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pos = np.random.default_rng(6).normal(size=(40, 3)).astype(np.float32)
+    call = {"knn": lambda: neighbors.knn(pos, pos, 4),
+            "knn_graph": lambda: neighbors.knn_graph(pos, 4),
+            "fps": lambda: neighbors.fps(pos, 0.5),
+            "knn_interpolate": lambda: neighbors.knn_interpolate(pos, pos, pos, 4),
+            "rotate_to_principle_components":
+                lambda: estimate.rotate_to_principle_components(pos)}[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    # device=None keeps a CPU tensor where it lies
+    t = torch.as_tensor(pos)
+    assert neighbors.knn(t, t, 4, device=None)[0].device.type == "cpu"

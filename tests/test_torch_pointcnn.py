@@ -125,6 +125,17 @@ def test_single_patch_vote_matches_jax(models):
 
 
 def test_torch_rng_replay_raises_naming_its_slice(models):
-    with pytest.raises(NotImplementedError, match="torch_rng"):
-        inference.ensemble_vote_patches([models[0][1]], _patches(6, (50,)),
-                                        torch_rng=object())
+    """The replay takes one start per model: with vote_starts > 1 or
+    fps_starts='centroid' it raises the JAX package's ValueError."""
+    from dipole_tpu.utils.torch_rng import TorchMT19937 as JaxMT
+    from dipole_tpu_torch.utils.torch_rng import TorchMT19937
+
+    patches = _patches(6, (50,))
+    for kw, match in (({"vote_starts": 2}, "vote_starts"),
+                      ({"fps_starts": "centroid"}, "centroid")):
+        with pytest.raises(ValueError, match=match):
+            jinference.ensemble_vote_patches([models[0][0]], patches,
+                                             torch_rng=JaxMT(1), **kw)
+        with pytest.raises(ValueError, match=match):
+            inference.ensemble_vote_patches([models[0][1]], patches,
+                                            torch_rng=TorchMT19937(1), **kw)

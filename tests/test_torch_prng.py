@@ -51,3 +51,35 @@ def test_random_valid_index_matches_jax(n_valid, n_pad):
     for key in prng.split(prng.prng_key(n_valid + n_pad), 40):
         want = int(jpointcnn._random_valid_index(jnp.asarray(key), valid))
         assert prng.random_valid_index(key, n_valid) == want
+
+
+SHAPES = [(), (1,), (7,), (3, 5), (13, 3, 2), (1024, 60)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 12345])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_uniform_shape_matches_jax(seed, shape):
+    """Bit-equal on [0, 1); on [-lim, lim) within 1 ulp of lim: XLA's CPU
+    backend fuses floats * (max - min) + min into one FMA, the port rounds
+    the product and the sum apart as the JAX program writes them (found:
+    up to 1 ulp of lim, never more)."""
+    key = np.asarray(jax.random.PRNGKey(seed))
+    np.testing.assert_array_equal(prng.uniform_shape(key, shape),
+                                  np.asarray(jax.random.uniform(key, shape)))
+    for lim in (np.float32(1.0), np.sqrt(np.float32(6.0 / 34)),
+                np.sqrt(np.float32(6.0 / 784))):
+        want = np.asarray(jax.random.uniform(key, shape, jnp.float32, -lim, lim))
+        got = prng.uniform_shape(key, shape, -lim, lim)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=np.spacing(lim))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+@pytest.mark.parametrize("lo,hi", [(0, 2**31 - 1), (0, 5), (-3, 1000), (5, 5),
+                                   (0, 70000), (9, 2)])
+def test_randint_matches_jax(seed, lo, hi):
+    key = np.asarray(jax.random.PRNGKey(seed))
+    for shape in ((), (7,), (1024, 60)):
+        np.testing.assert_array_equal(
+            prng.randint(key, shape, lo, hi),
+            np.asarray(jax.random.randint(key, shape, lo, hi)))
