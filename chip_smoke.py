@@ -205,6 +205,32 @@ Phases, one JSON line each:
                 orders a cloud), the plain versions a lane after another at
                 B = 8, the greedy's bound by operations with the full-grid
                 fit's step floor beside it, the replay's by bytes
+  6. mesh, vis  after the timing phases and the plain column greedy at
+                180k (time_plain_greedy_columns: after its ~10 million
+                launches the profiler's traces came back with no device
+                kernel in them, so no profiled timing follows it): the mesh
+                phase, on a virtual mesh Mesh([cuda:0] *
+                4) (and on make_mesh() over the cards where there are
+                several): field_grad_sharded (targets, sources, ring) at the
+                transfer's 10000 x 180000 within the field's tolerance,
+                potential_sharded (sources, ring) at 180000 x 1000 within
+                the potential's, point_group_interaction_sharded at the
+                lion's 138869 x 364 bit-equal, xie_in_order_sharded (xie,
+                dipole) with 3 BFS orders at 10k (agreement >= 0.99),
+                orient_simple on the 10k ellipsoid (equal to one device, GT
+                >= 0.99), orient(method="tree_xie", times=3) at 30k
+                (agreement >= 0.99, GT >= 0.95), orient_large on the lion
+                (GT >= 0.95) and handlers.dispatch under set_mesh
+                (simple_estimate equal to one device, GT >= 0.99; tree_xie
+                GT >= 0.95); one line a run: seconds beside the one-device
+                run, launches, no plain call; the sharded loops' us a step.
+                Then the vis phase: vis.draw_field_isosurface on the 10k
+                hand at res 48 (potential, then |E|; each lattice within its
+                kernel's tolerance of the plain version), plot_cross_section
+                (the .ply export without matplotlib) and
+                analysis.self_interaction_table over 8 of the oriented
+                hand's patches in get_segs's layout (within 1e-3 of the
+                CPU's)
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero before the
@@ -1056,11 +1082,7 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
         ms=cuda_ms(lambda: propagate_cuda.greedy_columns(pc180, 0, 1e-6), 2, 0),
         bound_ms=b[0], bound_by=b[1])
     emit({"phase": "timing", "partial": True, "results": res})
-    # the plain column greedy at 180k runs ~45 torch ops per step, once
-    plain_ms, want = timed(lambda: propagate.greedy_columns_plain(pc180, 0, 1e-6))
-    res["greedy_columns"]["plain_ms"] = plain_ms
-    res["greedy_columns"]["max_abs_err"] = _equal(
-        "greedy_columns", got, want, n=n180, main_path_shape=True)
+    del got
 
     # the column greedy's time a step against N on its own grid: us a step
     # = a + b N, a fit only (the grid grows with N up to one block an SM)
@@ -1129,6 +1151,24 @@ def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
           "greedy_columns_blocks_at_20480": blocks_sweep,
           "greedy_one_block_threshold": threshold, "tiers_at_matrix_limit": tiers})
     return res
+
+
+def time_plain_greedy_columns(gt180: np.ndarray, timing: dict, dev) -> None:
+    """The plain column greedy at 180k, once (~55 torch ops a step, ~10
+    million launches), held bit-equal to the kernel: after every profiled
+    timing, since the profiler's traces came back with no device kernel in
+    them after it (a probe traced the field after the plain greedy at 20k,
+    60k and then 180k in one process on an H100: the third trace was
+    empty)."""
+    from dipole_tpu_torch.ops import propagate, propagate_cuda
+    from dipole_tpu_torch.utils.io import Transform
+
+    pc180 = torch.as_tensor(Transform.trans(gt180)[0], device=dev)
+    got = propagate_cuda.greedy_columns(pc180, 0, 1e-6)
+    plain_ms, want = timed(lambda: propagate.greedy_columns_plain(pc180, 0, 1e-6))
+    timing["greedy_columns"]["plain_ms"] = plain_ms
+    timing["greedy_columns"]["max_abs_err"] = _equal(
+        "greedy_columns", got, want, n=len(pc180), main_path_shape=True)
 
 
 def _potential_shape(src, grid, run, reps) -> dict:
@@ -1503,14 +1543,16 @@ def profiled_ms(fn, name, reps: int) -> float:
     """Mean device time of the kernels whose name holds `name` (or, for a
     tuple of names, the sum of each name's mean), by torch.profiler over
     reps calls of fn (after one warm-up call). A trace that lost the
-    kernels' records (seen once in a few hundred) is taken again, up to
-    three times."""
+    kernels' records (seen once in a few hundred) is taken again after a
+    pause, up to six times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -1524,7 +1566,10 @@ def profiled_ms(fn, name, reps: int) -> float:
                 ms.append(sum(e.self_device_time_total for e in events) / 1e3 / calls)
         if ms:
             return sum(ms)
-    raise CheckFailed(f"profiler: no device kernel named {name}")
+    seen = sorted({e.key[:60] for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})[:8]
+    raise CheckFailed(f"profiler: no device kernel named {name} (the last "
+                      f"trace's device kernels: {seen})")
 
 
 def _profile_forward(batch, valid, starts, dev) -> None:
@@ -2845,6 +2890,351 @@ def phase_torch_rng(hand10: np.ndarray, launches, dev) -> dict:
     return res
 
 
+MESH_SHARDS = 4           # the virtual mesh: the one card named four times
+MESH_NOTE = ("virtual mesh: the shards share one card, so its times measure "
+             "the shard code (collectives are copies on one card), not NVLink")
+
+
+def _synced(fn):
+    """(seconds, result) of fn() between two device syncs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _field_ratio(got, want) -> float:
+    """The worst component's |got - want| over the field's tolerance, 1e-4
+    |E| + 1e-5 max|E| (ops/fields_cuda.field_grad)."""
+    got = torch.as_tensor(np.asarray(got), device=want.device)
+    tol = 1e-4 * want.abs() + 1e-5 * float(want.abs().max())
+    return float(((got - want).abs() / tol).max())
+
+
+def _within(ratio: float):
+    """A check's (ok, report) for a worst-entry tolerance ratio."""
+    return ratio <= 1.0, {"tolerance_ratio": ratio}
+
+
+def _same_sign(a: np.ndarray, b: np.ndarray) -> float:
+    return float(((a[:, 3:6] * b[:, 3:6]).sum(1) > 0).mean())
+
+
+def _oriented(gt, floor: float, equal: bool = False, agree: float = 0.0):
+    """The check of an oriented cloud against its one-device run: GT
+    agreement >= floor, and equal to the one-device output (equal) or on
+    the same side for >= agree of the points."""
+    from dipole_tpu_torch.ops.metrics import sign_agreement
+
+    def check(got, want):
+        a, g = _same_sign(got, want), sign_agreement(got, gt)
+        ok = g >= floor and (bool(np.array_equal(got, want)) if equal else a >= agree)
+        return ok, {"equal_to_one_device": bool(np.array_equal(got, want)),
+                    "agreement_with_one_device": a, "gt_sign_agreement": g}
+    return check
+
+
+def _mesh_run(mesh_label, run, sharded, single, check, path_kernels, launches,
+              **info):
+    """One sharded run: the one-device run first (its seconds beside), then
+    launch counts reset just before the sharded call and read just after;
+    check(got, want) -> (ok, report); each path kernel launched on the mesh,
+    no plain version called on a CUDA tensor."""
+    single_s, want = _synced(single)
+    _reset_counts()
+    secs, got = _synced(sharded)
+    counts, plain = _read_counts()
+    label = f"mesh_{mesh_label}_{run}"
+    RUN_COUNTS[label] = counts
+    ok, report = check(got, want)
+    emit({"phase": "mesh", "mesh": mesh_label, "run": run, "seconds": secs,
+          "single_device_seconds": single_s, **report, **info,
+          "launches": {k: v for k, v in counts.items() if v},
+          "plain_cuda_calls": plain, "card": CARD.get("nvidia_smi"),
+          **({"note": MESH_NOTE} if mesh_label.startswith("virtual") else {})})
+    require(ok, f"{label}: {report}")
+    for name in path_kernels:
+        require(counts[name] > 0, f"{label}: kernel {name} not launched")
+        launches[name] = launches.get(name, 0) + counts[name]
+    require(not any(plain.values()), f"{label}: plain version called on CUDA: {plain}")
+    return got, want, secs
+
+
+def _mesh_kernels(mesh, mesh_label, hand_out, hand180, cloud180, lion_reps,
+                  launches, dev) -> None:
+    """The sharded kernel paths: the field in its three modes at the
+    transfer's 10000 sources x 180000 targets, the potential (sources and
+    ring) at the sign fix's 180000 x 1000, the group at the lion's
+    representatives (bit-equal to the one-device call)."""
+    from dipole_tpu_torch.ops import fields
+    from dipole_tpu_torch.parallel import sharding
+    from dipole_tpu_torch.utils.io import gen_grid
+
+    src = torch.as_tensor(hand_out, device=dev)
+    tgt = torch.as_tensor(hand180[:, :3].copy(), device=dev)
+    for mode in ("targets", "sources", "ring"):
+        _mesh_run(mesh_label, f"field_{mode}",
+                  lambda mode=mode: sharding.field_grad_sharded(src, tgt, mesh, shard=mode),
+                  lambda: fields.field_grad(src, tgt),
+                  lambda got, want: _within(_field_ratio(got, want)),
+                  ("dipole_field",), launches, shape="10000 x 180000")
+    grid = torch.as_tensor(gen_grid(10), device=dev)
+    for mode in ("sources", "ring"):
+        _mesh_run(mesh_label, f"potential_{mode}",
+                  lambda mode=mode: sharding.potential_sharded(cloud180, grid, mesh,
+                                                               shard=mode),
+                  lambda: fields.potential(cloud180, grid),
+                  lambda got, want: _within(
+                      _potential_err(torch.as_tensor(got, device=dev), want)),
+                  ("dipole_potential",), launches, shape="180000 x 1000")
+    pts, gid, G = lion_reps
+    _mesh_run(mesh_label, "group_lion",
+              lambda: sharding.point_group_interaction_sharded(pts, gid, G, mesh),
+              lambda: fields.point_group_interaction(pts, gid, G),
+              lambda got, want: (lambda eq: (eq, {"bit_equal": eq}))(
+                  torch.equal(torch.as_tensor(got, device=dev), want)),
+              ("dipole_group",), launches, shape=f"{len(pts)} x {G}")
+
+
+def _mesh_replays(mesh, mesh_label, gt10, launches, dev) -> dict:
+    """The column-sharded replay of 3 BFS orders at 10000 points, xie and
+    dipole matrices (imatrix.cu's general modes), against the one-device
+    replay; the loop's us a step (seconds over the 10000 steps, the matrix
+    build included)."""
+    from dipole_tpu_torch.ops import propagate
+    from dipole_tpu_torch.parallel import sharding
+    from dipole_tpu_torch.utils.io import Transform
+
+    pts = Transform.trans(scramble(gt10, SEED + 3))[0]
+    orders, _ = propagate.bfs_orders(pts, 0, times=3)
+    us = {}
+    for kernel in ("xie", "dipole"):
+        secs = _mesh_run(
+            mesh_label, f"replay_{kernel}10k_times3",
+            lambda kernel=kernel: sharding.xie_in_order_sharded(pts, orders, mesh,
+                                                                kernel=kernel),
+            lambda kernel=kernel: propagate.xie_propagation_in_order(
+                pts, orders, kernel=kernel, device=dev),
+            lambda got, want: (lambda a: (a >= 0.99, {"agreement": a}))(
+                float((got == want).mean())),
+            (f"{kernel}_imatrix",), launches, steps=orders.shape[1])[2]
+        us[kernel] = 1e6 * secs / orders.shape[1]
+    return us
+
+
+def phase_mesh(gt10, gt30, cloud180, hand_out, hand180, lion, launches, dev) -> dict:
+    """The multi-device paths on a virtual mesh Mesh([cuda:0] * 4), and on
+    make_mesh() over the cards when there are more than one: the sharded
+    kernels (_mesh_kernels), the sharded replays, orient_simple on the 10k
+    ellipsoid (equal to the one-device run, GT >= 0.99, the sharded
+    greedy's us a step), orient(method="tree_xie", times=3) at 30000
+    (agreement >= 0.99 with one device, GT >= 0.95), orient_large on the
+    180k lion at the lion demo's flags (GT >= 0.95, agreement reported), and
+    the handlers under set_mesh (simple_estimate equal to the one-device
+    reply, GT >= 0.99; tree_xie GT >= 0.95)."""
+    from dipole_tpu_torch import api
+    from dipole_tpu_torch.api import MAX_PATCH_SIZE
+    from dipole_tpu_torch.ops.patching import divide_pc
+    from dipole_tpu_torch.parallel import sharding
+    from dipole_tpu_torch.serve import handlers
+    from dipole_tpu_torch.utils.io import Transform
+    from dipole_tpu_torch.utils.timing import timer_factory
+
+    t_phase = time.perf_counter()
+    pc = Transform.trans(lion)[0]
+    patches = divide_pc(pc[:, :3], LION_FLAGS["number_parts"],
+                        min_patch=LION_FLAGS["minimum_points_per_patch"])
+    rng = np.random.default_rng(1)
+    reps = [p[rng.permutation(len(p))][:MAX_PATCH_SIZE] for p in patches]
+    lion_reps = (torch.as_tensor(pc[np.concatenate(reps)], device=dev),
+                 torch.as_tensor(np.concatenate([np.full(len(r), i)
+                                                 for i, r in enumerate(reps)]),
+                                 device=dev), len(reps))
+    meshes = [(f"virtual{MESH_SHARDS}", sharding.Mesh([torch.device("cuda", 0)] * MESH_SHARDS))]
+    if torch.cuda.device_count() > 1:
+        m = sharding.make_mesh()
+        meshes.append((f"cards{m.size}", m))
+    res = {}
+    for mesh_label, mesh in meshes:
+        _mesh_kernels(mesh, mesh_label, hand_out, hand180, cloud180, lion_reps,
+                      launches, dev)
+        res[f"{mesh_label}_replay_us_per_step"] = _mesh_replays(mesh, mesh_label,
+                                                                gt10, launches, dev)
+
+    mesh_label, mesh = meshes[0]
+
+    # orient_simple: the sharded greedy and sign fix
+    inp = scramble(gt10, SEED + 1)
+    timer = timer_factory()
+    _mesh_run(
+        mesh_label, "orient_simple_10k_6col_diffuse",
+        lambda: api.orient_simple(inp, diffuse=True, mesh=mesh, timer=timer,
+                                  device="cuda"),
+        lambda: api.orient_simple(inp, diffuse=True, device="cuda"),
+        _oriented(gt10, 0.99, equal=True), ("dipole_potential",), launches)
+    greedy_s = timer.stages.get("dipole propagation (multichip)")
+    res["greedy_us_per_step"] = (None if greedy_s is None
+                                 else 1e6 * float(greedy_s) / (len(inp) - 1))
+
+    # tree_xie at the server's cap: the column-sharded replay, its loop
+    # timed where propagate calls it
+    inp30 = scramble(gt30, SEED + 30000)[:, :3].copy()
+    replays, real = [], sharding.xie_in_order_sharded
+
+    def timed_replay(pts, orders, *args, **kw):
+        secs, out = _synced(lambda: real(pts, orders, *args, **kw))
+        replays.append((secs, np.shape(orders)[1]))
+        return out
+
+    sharding.xie_in_order_sharded = timed_replay
+    try:
+        _mesh_run(
+            mesh_label, "tree_xie30k_times3",
+            lambda: api.orient(inp30, method="tree_xie", times=3, mesh=mesh,
+                               device="cuda"),
+            lambda: api.orient(inp30, method="tree_xie", times=3, device="cuda"),
+            _oriented(gt30, 0.95, agree=0.99), ("xie_imatrix", "dipole_potential"),
+            launches)
+    finally:
+        sharding.xie_in_order_sharded = real
+    require(len(replays) == 1, f"tree_xie under a mesh ran {len(replays)} sharded replays")
+    res["tree_xie30k_replay_us_per_step"] = 1e6 * replays[0][0] / replays[0][1]
+
+    # orient_large on the lion: the sharded ensemble, patch propagation,
+    # rest-point re-vote and sign fix
+    models = [str(m) for m in MODELS]
+    inp_lion = scramble(lion, SEED + 5)
+    _mesh_run(
+        mesh_label, "lion180k_orient_large",
+        lambda: api.orient_large(inp_lion, models=models, mesh=mesh, device="cuda",
+                                 **LION_FLAGS),
+        lambda: api.orient_large(inp_lion, models=models, device="cuda", **LION_FLAGS),
+        _oriented(lion, 0.95), ("knn", "fps", "dipole_group", "dipole_field",
+                                "dipole_potential"), launches)
+
+    # the handlers under the server-wide mesh (the micro-batcher bypassed)
+    xyz = scramble(gt10, SEED + 7)[:, :3].astype(np.float64)
+    cfg = dict(SERVE_XIE)
+    try:
+        def meshed(name, config):
+            handlers.set_mesh(mesh)
+            try:
+                return handlers.dispatch(name, xyz, config, device="cuda")
+            finally:
+                handlers.set_mesh(None)
+
+        _mesh_run(
+            mesh_label, "handler_simple_estimate10k",
+            lambda: meshed("simple_estimate", {}),
+            lambda: handlers.dispatch("simple_estimate", xyz, {}, device="cuda"),
+            _oriented(gt10, 0.99, equal=True), ("dipole_potential",), launches)
+        _mesh_run(
+            mesh_label, "handler_tree_xie10k",
+            lambda: meshed("tree_xie_propagation", cfg),
+            lambda: handlers.dispatch("tree_xie_propagation", xyz, cfg, device="cuda"),
+            _oriented(gt10, 0.95), ("xie_imatrix", "dipole_potential"), launches)
+    finally:
+        handlers.set_mesh(None)
+    res["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "mesh", "summary": res, "card": CARD.get("nvidia_smi")})
+    return res
+
+
+def _lattice_check(pc: torch.Tensor, res: int, quantity: str, dev) -> float:
+    """The vis lattice of `quantity` from its kernel against the plain
+    version on the card: the tolerance ratio (<= 1 passes)."""
+    from dipole_tpu_torch.ops import fields
+
+    lin = np.linspace(-1.2, 1.2, res)
+    X, Y, Z = np.meshgrid(lin, lin, lin, indexing="ij")
+    grid = torch.as_tensor(np.stack([X.ravel(), Y.ravel(), Z.ravel()], 1)
+                           .astype(np.float32), device=dev)
+    if quantity == "potential":
+        return _potential_err(fields.potential(pc, grid),
+                              fields.potential_plain(pc, grid))
+    return _field_ratio(fields.field_grad(pc, grid).cpu().numpy(),
+                        fields.field_grad_plain(pc, grid, 1e-5))
+
+
+def phase_vis(hand10: np.ndarray, hand_out: np.ndarray, launches, dev) -> dict:
+    """vis.py and analysis.py on the card: draw_field_isosurface on the 10k
+    hand at res 48 (110592 lattice targets: potential.cu, then |E| by
+    field.cu), plot_cross_section (the .ply export where matplotlib is
+    missing), and analysis.self_interaction_table over segments written from
+    the oriented hand's patches in get_segs's layout (res<i>.ply and
+    reslog.json); each lattice held to its plain version on the card, the
+    table to the CPU's."""
+    import tempfile
+
+    from dipole_tpu_torch import analysis, vis
+    from dipole_tpu_torch.ops.metrics import sign_agreement
+    from dipole_tpu_torch.ops.patching import divide_pc
+    from dipole_tpu_torch.utils.io import write_ply
+
+    t_phase = time.perf_counter()
+    pc = torch.as_tensor(hand10, device=dev)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for quantity, kernel in (("potential", "dipole_potential"),
+                                 ("field", "dipole_field")):
+            label = f"vis_isosurface_{quantity}_res48"
+            verts, faces, _ = _kernel_run(
+                label, lambda t, q=quantity: vis.draw_field_isosurface(
+                    hand10, tmp / f"iso_{q}.ply", res=48, quantity=q, device="cuda"),
+                (kernel,), launches,
+                lambda out: {"vertices": len(out[0]), "faces": len(out[1])})
+            ratio = _lattice_check(pc, 48, quantity, dev)
+            res[label] = {"tolerance_ratio": ratio, "vertices": len(verts),
+                          "launches": RUN_COUNTS[label][kernel]}
+            emit({"phase": "vis", "run": label, "lattice_targets": 48 ** 3,
+                  "tolerance_ratio": ratio, "card": CARD.get("nvidia_smi")})
+            require(len(faces) > 0 and (tmp / f"iso_{quantity}.ply").stat().st_size > 200,
+                    f"{label}: no surface written")
+            require(ratio <= 1.0, f"{label}: lattice off its plain version by {ratio}")
+        written = _kernel_run("vis_cross_section", lambda t: vis.plot_cross_section(
+            hand10, tmp / "slice.png", device="cuda"), ("dipole_potential",), launches,
+            lambda out: {"written": Path(out).name})
+        try:
+            import matplotlib  # noqa: F401
+            want_suffix = ".png"
+        except ImportError:
+            want_suffix = ".ply"
+        require(Path(written).suffix == want_suffix and Path(written).exists(),
+                f"plot_cross_section wrote {written}, expected a {want_suffix}")
+        res["cross_section"] = Path(written).name
+
+        # get_segs's layout from the oriented hand's patches
+        patches = [p for p in divide_pc(hand_out[:, :3], 30, min_patch=100)][:8]
+        log = []
+        for i, p in enumerate(patches):
+            write_ply(tmp / f"res{i}.ply", hand_out[p, :3], hand_out[p, 3:6])
+            log.append({"id": i, "metric": sign_agreement(hand_out[p], hand10[p])})
+        (tmp / "reslog.json").write_text(json.dumps({"node_log": log}))
+        segs = analysis.get_segs(tmp)
+        table = _kernel_run("analysis_self_interaction", lambda t: analysis.
+                            self_interaction_table(segs, device="cuda"),
+                            ("dipole_field",), launches,
+                            lambda out: {"segments": len(out)})
+        want = analysis.self_interaction_table(segs, device="cpu")
+        # the same random splits (the table's default rng); each value within
+        # 1e-3 of the row's largest |value| (sums of E.n that may cancel)
+        keys = ("self_interaction", "self_interaction_all", "random_self_interaction")
+        worst = 0.0
+        for got_row, want_row in zip(table, want):
+            scale = 1e-3 * max(abs(want_row[k]) for k in keys) + 1e-12
+            worst = max(worst, max(abs(got_row[k] - want_row[k]) / scale for k in keys))
+        res["analysis"] = {"segments": len(table), "tolerance_ratio_vs_cpu": worst}
+        emit({"phase": "vis", "run": "analysis_self_interaction", "segments": len(table),
+              "tolerance_ratio_vs_cpu": worst, "rtol": 1e-3})
+        require(len(table) == len(patches) and worst <= 1.0,
+                f"self_interaction_table: {len(table)} rows, off the CPU's by {worst}")
+    res["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "vis", "summary": res, "card": CARD.get("nvidia_smi")})
+    return res
+
+
 def main(argv) -> int:
     checks_only = "--checks-only" in argv
     info = phase_device()
@@ -2884,6 +3274,10 @@ def main(argv) -> int:
     timing.update(phase_timing_mxu(tool, mxu_plain_ms, dev))
     timing.update(phase_timing_serve(
         dev, timing["greedy_columns"]["full_grid_us_per_step"]["a_us"]))
+    # after every profiled timing: see the docstring's phase 6
+    time_plain_greedy_columns(gt180, timing, dev)
+    phase_mesh(gt10, gt30, cloud180, hand_out, hand180, lion, launches, dev)
+    phase_vis(hand10, hand_out, launches, dev)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

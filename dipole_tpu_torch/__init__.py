@@ -12,7 +12,10 @@ handlers (`serve.handlers.dispatch`) and the patch-graph pipeline
 (`pipelines.graph_dipole`, `python -m dipole_tpu_torch.cli.graph_dipole`);
 and the reference-protocol TCP servers with micro-batching
 (`python -m dipole_tpu_torch.serve.server_para`, `serve.server`;
-`api.orient_simple_batch` is the in-memory form of the batching).
+`api.orient_simple_batch` is the in-memory form of the batching); PointCNN
+training (`train.py`); multi-device execution on a one-process device mesh
+(`parallel.sharding.Mesh`, every `mesh=` and `--mesh`); and the
+visualization exports and analysis helpers (`vis.py`, `analysis.py`).
 
 Ground rules:
   * No JAX. The package imports `torch`, never `jax`, and nothing of

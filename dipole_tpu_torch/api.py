@@ -1,10 +1,14 @@
-"""In-memory orientation API — the port of dipole_tpu/api.py:139-219 and
-:223-642: per-point propagation, the patch pipelines, and the xie, tree-xie
-and Hoppe methods of `orient` (through serve/handlers.py).
+"""In-memory orientation API — the port of dipole_tpu/api.py: per-point
+propagation, the patch pipelines, and the xie, tree-xie and Hoppe methods of
+`orient` (through serve/handlers.py), each on one device or over a mesh.
 
 Arrays in, oriented (N, 6) float32 arrays out, in the ORIGINAL coordinate
 space (normalization is internal). Every function takes `device` (default
-"cuda"); "cuda" without a GPU raises.
+"cuda"); "cuda" without a GPU raises. `mesh` takes a
+parallel.sharding.Mesh, a device count (the first N cards, or N CPU shards
+with device="cpu"), 'auto' or None (resolve_mesh); its stages shard as the
+JAX package's decision table says (stage_mesh), and the other stages run on
+`device`, whose type the mesh's devices must share.
 
     import dipole_tpu_torch
     oriented = dipole_tpu_torch.orient(points)                 # auto method
@@ -14,6 +18,7 @@ space (normalization is internal). Every function takes `device` (default
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from dipole_tpu_torch.device import resolve_device
 from dipole_tpu_torch.models.inference import (ensemble_vote_patches,
@@ -22,45 +27,113 @@ from dipole_tpu_torch.models.pointcnn import PointCNN
 from dipole_tpu_torch.ops import fields, propagate
 from dipole_tpu_torch.ops.estimate import estimate_normals
 from dipole_tpu_torch.ops.patching import divide_pc, fix_n_filter
+from dipole_tpu_torch.parallel.sharding import (Mesh, make_mesh,
+                                                orient_points_multichip,
+                                                potential_sharded)
 from dipole_tpu_torch.utils import prng
-from dipole_tpu_torch.utils.io import Transform, orient_center_np
+from dipole_tpu_torch.utils.io import Transform, gen_grid, orient_center_np
 from dipole_tpu_torch.utils.timing import timer_factory
 from dipole_tpu_torch.utils.torch_rng import TorchMT19937
 
 __all__ = ["orient", "orient_simple", "orient_simple_batch", "orient_patches",
            "orient_patches_consensus", "orient_large", "transfer_orientation",
-           "resolve_mesh", "MAX_PATCH_SIZE"]
+           "resolve_mesh", "stage_mesh", "AutoMesh", "MAX_PATCH_SIZE"]
 
 MAX_PATCH_SIZE = 500  # representatives per patch (reference orient_large.py:14)
 
-_MULTI_DEVICE_SLICE = ("multi-device execution (parallel/, the mesh= "
-                       "argument) is not ported yet; it is a later slice of "
-                       "the port (ROADMAP.md §1 item 4, 'Multi-device')")
+
+class AutoMesh:
+    """Marker for --mesh auto: the mesh is available, and each stage picks
+    sharded or one device by the decision table (stage_mesh)."""
+
+    __slots__ = ("mesh",)
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def __repr__(self):
+        return f"AutoMesh({self.mesh!r})"
 
 
-def resolve_mesh(mesh):
-    """Accept the JAX package's mesh values: None, a device count, or a
-    string. None, '', '0', '1', 'none', 'off' and 'auto' mean one device
-    ('auto' keeps the per-point greedy and the sign fix on one device up to
-    the 2^24-point ceiling, as the JAX package's decision table does). A
-    count above 1 raises NotImplementedError."""
+def resolve_mesh(mesh, device="cuda"):
+    """Accept a Mesh, an AutoMesh, a device count (int or str), 'auto' or
+    None (JAX api.py:47-76). None, a count of 1 or less, '', '0', 'none'
+    and 'off' mean one device (the mesh paths bypassed); a mesh of one
+    device too. A count N > 1 is make_mesh(N, device): the first N cards,
+    or N CPU shards when `device` is the CPU; more cards than exist raise
+    ValueError. A Mesh or a count FORCES the sharded path everywhere;
+    'auto' is every card (CPU: make_mesh's default shards) under an
+    AutoMesh marker, and each stage then decides (stage_mesh); one card
+    means no mesh."""
     if mesh is None:
         return None
+    if isinstance(mesh, (Mesh, AutoMesh)):
+        m = mesh.mesh if isinstance(mesh, AutoMesh) else mesh
+        return mesh if m.size > 1 else None
+    kind = torch.device(device).type
     if isinstance(mesh, str):
         key = mesh.strip().lower()
-        if key in ("", "0", "none", "off", "auto"):
+        if key in ("", "0", "none", "off"):
             return None
+        if key == "auto":
+            if kind == "cuda" and not torch.cuda.is_available():
+                return None
+            m = make_mesh(device=kind)
+            return AutoMesh(m) if m.size > 1 else None
         mesh = int(key)
-    if isinstance(mesh, (int, np.integer)):
-        if mesh <= 1:
-            return None
-        raise NotImplementedError(f"mesh={mesh}: {_MULTI_DEVICE_SLICE}")
-    raise NotImplementedError(f"mesh={mesh!r}: {_MULTI_DEVICE_SLICE}")
+    if isinstance(mesh, (int, np.integer)) and not isinstance(mesh, bool):
+        return None if mesh <= 1 else make_mesh(int(mesh), device=kind)
+    raise ValueError(f"cannot resolve mesh from {mesh!r}")
 
 
-def _sign_fix(pc: np.ndarray, timer, device) -> np.ndarray:
+def _mesh_for(mesh, dev: torch.device):
+    """resolve_mesh(mesh, dev), refusing a mesh of another device type than
+    `dev` (a CUDA mesh never hands its stages to the CPU, nor the reverse)."""
+    mesh = resolve_mesh(mesh, dev)
+    m = mesh.mesh if isinstance(mesh, AutoMesh) else mesh
+    if m is not None and m.type != dev.type:
+        raise ValueError(f"mesh {m} does not run on device {str(dev)!r}")
+    return mesh
+
+
+def _greedy_single_chip_max(device_type: str = "cuda") -> int:
+    """The one-device greedy's point capacity: on a card, the kernels'
+    2^24 (propagate_cuda.MAX_POINTS, where the wrappers refuse larger
+    clouds); on the CPU the plain loop has no ceiling (JAX api.py:84-91).
+    Auto reaches for the sharded loop only past it."""
+    if device_type == "cuda":
+        from dipole_tpu_torch.ops import propagate_cuda
+
+        return propagate_cuda.MAX_POINTS
+    return 2**62
+
+
+def stage_mesh(mesh, stage: str, n: int | None = None):
+    """Per-stage mesh for --mesh auto (JAX api.py:94-136). An explicit mesh
+    passes through (the caller forced sharding). Under an AutoMesh the JAX
+    package's decision table applies, kept as it is: 'ensemble' and 'field'
+    shard (patches and targets are independent), and the sequential or
+    collective-bound stages ('greedy', 'patch', 'replay', 'sign_fix') stay
+    on one device, except the greedy past one device's capacity
+    (_greedy_single_chip_max), where the sharded loop is the only path."""
+    if mesh is None:
+        return None
+    if not isinstance(mesh, AutoMesh):
+        return mesh
+    if stage in ("ensemble", "field"):
+        return mesh.mesh
+    if stage == "greedy" and n is not None and n > _greedy_single_chip_max(mesh.mesh.type):
+        return mesh.mesh
+    return None
+
+
+def _sign_fix(pc: np.ndarray, timer, device, mesh=None) -> np.ndarray:
     with timer("global sign fix"):
-        if fields.measure_mean_potential(pc, device=device) < 0:
+        if mesh is not None:
+            mean = float(potential_sharded(pc, gen_grid(10), mesh).mean())
+        else:
+            mean = fields.measure_mean_potential(pc, device=device)
+        if mean < 0:
             pc[:, 3:6] *= -1
     return pc
 
@@ -69,9 +142,11 @@ def orient_simple(points, diffuse: bool = False, estimate: bool = False,
                   n: int = 30, timer=None, mesh=None,
                   device="cuda") -> np.ndarray:
     """Per-point strongest-field propagation (reference orient_simple.py:8-34):
-    (estimate) -> normalize -> propagate -> lattice sign fix -> denormalize."""
+    (estimate) -> normalize -> propagate -> lattice sign fix -> denormalize.
+    mesh: the greedy's accumulator and the sign fix's sources shard over
+    the mesh's devices (parallel.sharding.orient_points_multichip)."""
     dev = resolve_device(device)
-    resolve_mesh(mesh)
+    mesh = _mesh_for(mesh, dev)
     stage_timer = timer or timer_factory()
     input_pc = np.asarray(points, dtype=np.float32)
 
@@ -80,6 +155,13 @@ def orient_simple(points, diffuse: bool = False, estimate: bool = False,
             input_pc = estimate_normals(input_pc, max_nn=n, device=dev)
 
     input_pc, transform = Transform.trans(input_pc)
+
+    greedy_mesh = stage_mesh(mesh, "greedy", len(input_pc))
+    if greedy_mesh is not None:
+        with stage_timer("dipole propagation (multichip)"):
+            input_pc = orient_points_multichip(input_pc, greedy_mesh,
+                                               diffuse=diffuse, starting_point=0)
+        return transform.inverse(input_pc)
 
     with stage_timer("dipole propagation"):
         input_pc = propagate.strongest_field_propagation_points(
@@ -130,19 +212,20 @@ def _check_vote_flags(fix_when: str, fix_vote: str) -> None:
         raise ValueError(f"fix_vote must be 'all' or 'mean', got {fix_vote!r}")
 
 
-def _fix_probs(fix_models, patches, sub, fix_vote: str, fps_starts: str):
+def _fix_probs(fix_models, patches, sub, fix_vote: str, fps_starts: str,
+               mesh=None):
     """(probs, probs_by_model) per patch for the staged fix pass: under
     fix_vote 'all' each fixer votes alone and a point's P(flip) is the
     largest (every fixer must clear the margin); under 'mean' the fixers
     vote together (one entry per patch in probs_by_model)."""
     if fix_vote == "all":
-        per_model = [ensemble_vote_patches([m], patches, key=sub,
+        per_model = [ensemble_vote_patches([m], patches, key=sub, mesh=mesh,
                                            fps_starts=fps_starts)
                      for m in fix_models]
         by_model = [[pm[i][1] for pm in per_model] for i in range(len(patches))]
         return [np.max(ps, axis=0) for ps in by_model], by_model
     probs = [p for _f, p in ensemble_vote_patches(fix_models, patches, key=sub,
-                                                  fps_starts=fps_starts)]
+                                                  mesh=mesh, fps_starts=fps_starts)]
     return probs, [[p] for p in probs]
 
 
@@ -168,7 +251,9 @@ def orient_patches(points, models=(), iters: int = 100,
     staged per-point fix pass), vote_seed (base seed of the vote keys),
     torch_rng (an int seed: the main vote's FPS starts replay the
     reference's torch.manual_seed(seed) stream, one stream a call shared by
-    every iteration; the fix pass keeps its threefry keys)."""
+    every iteration; the fix pass keeps its threefry keys). mesh: the
+    ensemble's patch batch and the patch propagation's pair work shard over
+    the mesh's devices (results unchanged)."""
     if torch_rng is not None and int(vote_starts) != 1:
         raise ValueError("vote_starts > 1 is incompatible with torch_rng "
                          "replay (one start per model by definition)")
@@ -177,7 +262,7 @@ def orient_patches(points, models=(), iters: int = 100,
                          "torch_rng replay (the replayed stream defines "
                          "the starts)")
     dev = resolve_device(device)
-    resolve_mesh(mesh)
+    mesh = _mesh_for(mesh, dev)
     rng_stream = None if torch_rng is None else TorchMT19937(int(torch_rng))
     _check_vote_flags(fix_when, fix_vote)
     stage_timer = timer or timer_factory()
@@ -206,7 +291,8 @@ def orient_patches(points, models=(), iters: int = 100,
     def propagate_now():
         return propagate.strongest_field_propagation_patches(
             input_pc, patch_indices, all_patches, diffuse=diffuse,
-            weights=pc_probs if weighted_prop else None, device=dev)
+            weights=pc_probs if weighted_prop else None,
+            mesh=stage_mesh(mesh, "patch", len(input_pc)), device=dev)
 
     def fix_pass():
         # staged per-point fix pass: fixers flip only margin-clearing,
@@ -217,7 +303,7 @@ def orient_patches(points, models=(), iters: int = 100,
         key, sub = prng.split(key, 2)
         patches_now = [input_pc[pidx] for _, pidx in patch_indices]
         plist, by_model = _fix_probs(fix_models, patches_now, sub, fix_vote,
-                                     fps_starts)
+                                     fps_starts, stage_mesh(mesh, "ensemble"))
         records = []
         for i, ((_, pidx), probs) in enumerate(zip(patch_indices, plist)):
             flip = probs < (0.5 - fix_margin)
@@ -239,7 +325,8 @@ def orient_patches(points, models=(), iters: int = 100,
                 key, sub = prng.split(key, 2)
                 votes = ensemble_vote_patches(
                     models, [input_pc[pidx] for _, pidx in patch_indices],
-                    key=sub, torch_rng=rng_stream, vote_starts=vote_starts,
+                    key=sub, mesh=stage_mesh(mesh, "ensemble"),
+                    torch_rng=rng_stream, vote_starts=vote_starts,
                     fps_starts=fps_starts)
                 for (_, pidx), (flip, probs) in zip(patch_indices, votes):
                     if vote_margin:
@@ -259,7 +346,7 @@ def orient_patches(points, models=(), iters: int = 100,
             fix_pass()
     with stage_timer("patch propagation"):
         input_pc = propagate_now()
-    input_pc = _sign_fix(input_pc, stage_timer, dev)
+    input_pc = _sign_fix(input_pc, stage_timer, dev, stage_mesh(mesh, "sign_fix"))
     return transform.inverse(input_pc)
 
 
@@ -297,9 +384,11 @@ def orient_large(points, models=(), iters: int = 100, number_parts: int = 15,
     patches -> curvature filter -> orient_center -> `iters` ensemble rounds
     on the representatives -> representative propagation (diffuse), rest
     points re-voted by the field of the oriented representatives -> lattice
-    sign fix. Options as orient_patches."""
+    sign fix. Options as orient_patches; mesh: the ensemble forwards, the
+    representatives' group interaction and the rest-point field pass shard
+    over the mesh's devices."""
     dev = resolve_device(device)
-    resolve_mesh(mesh)
+    mesh = _mesh_for(mesh, dev)
     _check_vote_flags(fix_when, fix_vote)
     stage_timer = timer or timer_factory()
     input_pc, transform = Transform.trans(np.asarray(points, dtype=np.float32))
@@ -337,7 +426,8 @@ def orient_large(points, models=(), iters: int = 100, number_parts: int = 15,
                 return
             key, sub = prng.split(key, 2)
             plist, _ = _fix_probs(fix_models, [input_pc[r] for r in rep_sets],
-                                  sub, fix_vote, fps_starts)
+                                  sub, fix_vote, fps_starts,
+                                  stage_mesh(mesh, "ensemble"))
             for reps, probs in zip(rep_sets, plist):
                 flip = probs < (0.5 - fix_margin)
                 if flip.mean() >= 0.5:
@@ -351,7 +441,8 @@ def orient_large(points, models=(), iters: int = 100, number_parts: int = 15,
             key, sub = prng.split(key, 2)
             votes = ensemble_vote_patches(
                 models, [input_pc[r] for r in rep_sets], key=sub,
-                vote_starts=vote_starts, fps_starts=fps_starts)
+                mesh=stage_mesh(mesh, "ensemble"), vote_starts=vote_starts,
+                fps_starts=fps_starts)
             for reps, (flip, probs) in zip(rep_sets, votes):
                 if vote_margin:
                     flip = probs < (0.5 - vote_margin)
@@ -364,8 +455,9 @@ def orient_large(points, models=(), iters: int = 100, number_parts: int = 15,
 
     with stage_timer("dipole propagation"):
         input_pc = propagate.strongest_field_propagation_reps(
-            input_pc, represent, diffuse=True, device=dev)
-    input_pc = _sign_fix(input_pc, stage_timer, dev)
+            input_pc, represent, diffuse=True,
+            mesh=stage_mesh(mesh, "patch", len(input_pc)), device=dev)
+    input_pc = _sign_fix(input_pc, stage_timer, dev, stage_mesh(mesh, "sign_fix"))
     return transform.inverse(input_pc)
 
 
@@ -389,7 +481,8 @@ def orient(points, method: str = "auto", models=(), **kwargs) -> np.ndarray:
     without. xie/tree_xie/hoppe take the server protocol's config keys
     (serve/handlers.py) as kwargs, with the JAX defaults (n -> max_nn 30,
     eps 1.0, diffuse False, times 3; hoppe: n -> k_neighbor 10); like the
-    server they take xyz only and re-estimate the normals."""
+    server they take xyz only and re-estimate the normals; a `mesh` among
+    the kwargs is the one the handler runs under (handlers.dispatch)."""
     points = np.asarray(points)
     if method == "auto":
         if len(points) > 50_000:
@@ -406,6 +499,7 @@ def orient(points, method: str = "auto", models=(), **kwargs) -> np.ndarray:
         from dipole_tpu_torch.serve import handlers
 
         device = kwargs.pop("device", "cuda")
+        mesh = kwargs.pop("mesh", None)
         name = {"xie": "xie_propagation", "tree_xie": "tree_xie_propagation",
                 "hoppe": "hoppe_estimate"}[method]
         if method == "hoppe":
@@ -414,6 +508,7 @@ def orient(points, method: str = "auto", models=(), **kwargs) -> np.ndarray:
         else:
             config = {"max_nn": kwargs.pop("n", 30), "eps": 1.0,
                       "diffuse": False, "times": 3, **kwargs}
-        out = handlers.dispatch(name, points[:, :3], config, device=device)
+        out = handlers.dispatch(name, points[:, :3], config, device=device,
+                                mesh=mesh)
         return np.asarray(out, dtype=np.float32)
     raise ValueError(f"unknown method {method!r}")

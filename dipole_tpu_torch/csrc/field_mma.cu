@@ -479,7 +479,9 @@ int launch(const float* src, int n_src, const float* tgt, int n_tgt, float eps,
   plan(n_src, n_tgt, &n_chunks, &chunk);
   if (n_chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = 2 * sizeof(Stage<kExpansion>);
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // set on every launch: the attribute belongs to the current device, and
+  // a process may launch on several cards
+  const cudaError_t attr = cudaFuncSetAttribute(
       field_mma_partial<kExpansion>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);

@@ -82,13 +82,15 @@ def ensemble_vote(models, patch, key=None):
     return voting_policy(votes)
 
 
-def ensemble_vote_patches(models, patches, key=None, torch_rng=None,
+def ensemble_vote_patches(models, patches, key=None, mesh=None, torch_rng=None,
                           vote_starts: int = 1, fps_starts: str = "rng"):
     """Ensemble-vote many ragged patches at once (JAX inference.py:94-234):
     all patches share one padded bucket, are padded and moved to the
     models' device once, and each model (and vote start) runs one batched
     forward over them. Returns a list of (flip_mask, probs) aligned with
-    `patches`.
+    `patches`. mesh: a parallel.sharding.Mesh; the patch batch is split over
+    its devices, a model replica on each (the torch_rng replay stays on one
+    device, as in the JAX package).
 
     vote_starts: votes per model with independent FPS starts (1 = the
     reference). fps_starts: 'rng' (key-derived random starts) or 'centroid'
@@ -130,15 +132,17 @@ def ensemble_vote_patches(models, patches, key=None, torch_rng=None,
     for mi, model in enumerate(models):
         mkey = _model_key(key, model, mi)
         dev = next(model.parameters()).device
-        width = _forward_width(bucket, model.pool)
-        if (width, dev) not in prepared_cache:
-            prepared_cache[(width, dev)] = prepare_patch_batches(
-                patches, bucket, width, dev)
+        width = _forward_width(bucket, model.pool) * (1 if mesh is None else mesh.size)
+        place = dev if mesh is None else mesh
+        if (width, place) not in prepared_cache:
+            prepared_cache[(width, place)] = prepare_patch_batches(
+                patches, bucket, width, dev, mesh)
         for s in range(vote_starts):
             skey = mkey if s == 0 else prng.fold_in(mkey, 0x9E3779B9 + s)
             outs = pointcnn_logits_batched(
                 model, patches, key=prng.fold_in(skey, bucket), bucket=bucket,
-                starts=det_starts, prepared=prepared_cache[(width, dev)])
+                starts=det_starts, prepared=prepared_cache[(width, place)],
+                mesh=mesh)
             for i, logits in enumerate(outs):
                 probs_per_vote[mi * vote_starts + s][i] = _softmax(logits)[:, 1]
     return [voting_policy([probs_per_vote[v][i] for v in range(n_votes)])

@@ -25,8 +25,10 @@ the same selections.
 """
 from __future__ import annotations
 
+import copy
 import hashlib
 import math
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -317,43 +319,78 @@ def key_starts(key, lens, pool: float, m1: int) -> np.ndarray:
                     axis=1).astype(np.int32)
 
 
-def prepare_patch_batches(patches, bucket: int, width: int, device):
+def prepare_patch_batches(patches, bucket: int, width: int, device, mesh=None):
     """Pad patches into (pc, valid) chunk tensors on `device` once, shared by
     every model pass of an ensemble call (JAX pointcnn.py:582-603). Chunk
-    rows are padded to a power of two of at least 8. Returns
-    [(pc, valid, lo, lens), ...]."""
+    rows are padded to a power of two of at least 8. With a mesh
+    (parallel.sharding.Mesh) each chunk of `width` patches is split over
+    its devices (np.array_split's slices of the chunk, each padded and
+    placed on its shard's device; JAX shards the chunk's patch axis).
+    Returns [(pc, valid, lo, lens), ...]."""
     prepared = []
     for lo in range(0, len(patches), width):
-        chunk = patches[lo:lo + width]
-        Bp = _bucket(len(chunk), base=8)
-        pc = np.zeros((Bp, bucket, 6), np.float32)
-        valid = np.zeros((Bp, bucket), bool)
-        for i, p in enumerate(chunk):
-            pc[i, :len(p)] = p
-            valid[i, :len(p)] = True
-        prepared.append((torch.as_tensor(pc, device=device),
-                         torch.as_tensor(valid, device=device), lo,
-                         [len(p) for p in chunk]))
+        chunk = list(range(lo, min(lo + width, len(patches))))
+        parts = ([(chunk, device)] if mesh is None else
+                 [(list(c), d) for c, d in
+                  zip(np.array_split(np.asarray(chunk), mesh.size), mesh.devices)])
+        for idx, dev in parts:
+            if not len(idx):
+                continue
+            Bp = _bucket(len(idx), base=8)
+            pc = np.zeros((Bp, bucket, 6), np.float32)
+            valid = np.zeros((Bp, bucket), bool)
+            for i, pi in enumerate(idx):
+                pc[i, :len(patches[pi])] = patches[pi]
+                valid[i, :len(patches[pi])] = True
+            prepared.append((torch.as_tensor(pc, device=dev),
+                             torch.as_tensor(valid, device=dev), int(idx[0]),
+                             [len(patches[pi]) for pi in idx]))
     return prepared
+
+
+_REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _replica(model: "PointCNN", device) -> "PointCNN":
+    """The model on `device`: itself where it lives, else a copy made once
+    and kept until the model's weights change (the per-shard replica of a
+    sharded forward)."""
+    device = torch.device(device)
+    if next(model.parameters()).device == device:
+        return model
+    stamp = tuple((p.data_ptr(), p._version) for p in model.parameters())
+    cache = _REPLICAS.setdefault(model, {})
+    held = cache.get(device)
+    if held is None or held[0] != stamp:
+        held = (stamp, copy.deepcopy(model).to(device))
+        cache[device] = held
+    return held[1]
 
 
 @torch.no_grad()
 def pointcnn_logits_batched(model: PointCNN, patches, key=None, bucket=None,
                             starts=None, prepared=None, device=None,
-                            precanon: bool = False) -> list:
+                            precanon: bool = False, mesh=None) -> list:
     """The forward over many ragged patches (JAX pointcnn.py:606-721):
     patches padded to one bucket and run in chunks of at most
     _forward_width(bucket, pool). starts: optional (len(patches), 2) FPS
     start indices; by default they are derived from `key` (a threefry key,
-    default PRNGKey(0)) as the JAX package derives them. prepared: the
-    prepare_patch_batches result of this call's patches, bucket and width.
-    precanon: the patches are already canonicalized (the torch_rng replay,
-    inference._canon_reference): the forward skips its own. Returns a list
-    of (n_i, 2) float32 numpy arrays."""
+    default PRNGKey(0)) as the JAX package derives them, per patch, so no
+    start depends on the chunks or the shards. prepared: the
+    prepare_patch_batches result of this call's patches, bucket and width
+    (and mesh). precanon: the patches are already canonicalized (the
+    torch_rng replay, inference._canon_reference): the forward skips its
+    own, on one device (a mesh is ignored, as in the JAX package). mesh: a
+    parallel.sharding.Mesh; each chunk, mesh.size times as wide, is split
+    over its devices, each running a replica of the model (the kNN and FPS
+    kernels launch on each shard; every shard is launched before any result
+    is read back). Returns a list of (n_i, 2) float32 numpy arrays."""
     patches = [np.asarray(p, np.float32) for p in patches]
     if not patches:
         return []
     dev = device or next(model.parameters()).device
+    if precanon:
+        mesh = None
     nb = bucket or _bucket(max(len(p) for p in patches))
     m1, _ = _pad_sizes(nb, model.pool)
     if starts is None:
@@ -366,12 +403,13 @@ def pointcnn_logits_batched(model: PointCNN, patches, key=None, bucket=None,
         raise ValueError(f"starts: expected ({len(patches)}, 2) indices in "
                          f"[0, {nb}) and [0, {m1}), the two stages' rows")
     if prepared is None:
-        prepared = prepare_patch_batches(patches, nb, _forward_width(nb, model.pool), dev)
+        width = _forward_width(nb, model.pool) * (1 if mesh is None else mesh.size)
+        prepared = prepare_patch_batches(patches, nb, width, dev, mesh)
     elif sum(len(lens) for *_, lens in prepared) != len(patches) \
             or any(pc.shape[1] != nb for pc, *_ in prepared):
         raise ValueError("prepared batches do not match this call's patches "
                          "and bucket")
-    results: list = [None] * len(patches)
+    launched = []
     for pc, valid, lo, lens in prepared:
         st = np.zeros((pc.shape[0], 2), np.int32)
         st[:len(lens)] = starts[lo:lo + len(lens)]
@@ -381,7 +419,10 @@ def pointcnn_logits_batched(model: PointCNN, patches, key=None, bucket=None,
                               torch.full((1, 1, 1), _SENTINEL, device=pc.device))
             out = model.forward_precanon(pc, pos, valid, st[:, 0], st[:, 1])
         else:
-            out = model(pc, valid, st[:, 0], st[:, 1])
+            out = _replica(model, pc.device)(pc, valid, st[:, 0], st[:, 1])
+        launched.append((out, lo, lens))
+    results: list = [None] * len(patches)
+    for out, lo, lens in launched:
         out = out.cpu().numpy()
         for i, n in enumerate(lens):
             results[lo + i] = out[i, :n]

@@ -242,48 +242,68 @@ def reference_field(ref_pc, target_pc, device="cuda") -> np.ndarray:
 
 
 def point_group_interaction_plain(pts: torch.Tensor, group_ids: torch.Tensor,
-                                  num_groups: int, eps: float) -> torch.Tensor:
+                                  num_groups: int, eps: float,
+                                  targets: torch.Tensor | None = None) -> torch.Tensor:
     """Plain torch version of the group kernel: the interaction matrix tile
-    by tile, summed into groups by a one-hot product as the JAX package does
-    (fields.py:431-447). pts (N, 6) are targets and sources; ids outside
-    [0, num_groups) contribute nowhere."""
+    by tile, summed into groups. pts (N, 6) are the sources, and the
+    targets unless targets (T, 6) are given; ids outside [0, num_groups)
+    contribute nowhere. On the card the sums are a one-hot product, as the
+    JAX package takes them (fields.py:431-447); on the CPU each row is
+    summed in float64 in source order (index_add_), so that a row does not
+    depend on the rows beside it (BLAS blocks its products by the row
+    count): a target shard gives the bits of the whole call."""
     _count_plain("dipole_group", pts)
+    tgt = pts if targets is None else targets
     n = pts.shape[0]
-    F = torch.zeros((n, num_groups), dtype=torch.float32, device=pts.device)
+    exact = pts.device.type == "cpu"
+    F = torch.zeros((tgt.shape[0], num_groups),
+                    dtype=torch.float64 if exact else torch.float32,
+                    device=pts.device)
     gid = group_ids.to(device=pts.device, dtype=torch.int64)
     for sb in range(0, n, _GROUP_BLOCK_S):
         g = gid[sb:sb + _GROUP_BLOCK_S]
-        keep = (g >= 0) & (g < num_groups)
-        onehot = torch.zeros((len(g), num_groups), dtype=torch.float32,
-                             device=pts.device)
-        onehot[torch.nonzero(keep)[:, 0], g[keep]] = 1.0
+        keep = torch.nonzero((g >= 0) & (g < num_groups))[:, 0]
         src = pts[sb:sb + _GROUP_BLOCK_S]
-        for tb in range(0, n, _PLAIN_BLOCK_T):
-            F[tb:tb + _PLAIN_BLOCK_T] += _imatrix_tile(
-                pts[tb:tb + _PLAIN_BLOCK_T], src, eps) @ onehot
-    return F
+        if exact:
+            src, g = src[keep], g[keep]
+        else:
+            onehot = torch.zeros((len(g), num_groups), dtype=torch.float32,
+                                 device=pts.device)
+            onehot[keep, g[keep]] = 1.0
+        for tb in range(0, tgt.shape[0], _PLAIN_BLOCK_T):
+            I = _imatrix_tile(tgt[tb:tb + _PLAIN_BLOCK_T], src, eps)
+            if exact:
+                F[tb:tb + _PLAIN_BLOCK_T].index_add_(1, g, I.double())
+            else:
+                F[tb:tb + _PLAIN_BLOCK_T] += I @ onehot
+    return F.to(torch.float32)
 
 
 def point_group_interaction(pts, group_ids, num_groups: int, eps: float = 1e-5,
-                            source_weights=None) -> torch.Tensor:
+                            source_weights=None,
+                            targets: torch.Tensor | None = None) -> torch.Tensor:
     """F[i, g] = sum over sources j in group g of I[i, j] (JAX
     fields.py:450-468): the core of patch propagation. pts (N, >=6) float32
     tensor, group_ids (N,) integer tensor on its device. source_weights
     optionally scales every point's moment, as targets and as sources
-    (weighted_prop)."""
+    (weighted_prop). targets (T, >=6), default pts: rows of F for other
+    points, used as given (parallel/sharding.py's target shards); a row's
+    value does not depend on the rows beside it."""
     pts = pts[:, :6].to(torch.float32)
     if source_weights is not None:
         pts = pts.clone()
         pts[:, 3:6] *= torch.as_tensor(source_weights, dtype=torch.float32,
                                        device=pts.device)[:, None]
     pts = pts.contiguous()
+    tgt = None if targets is None else targets[:, :6].to(torch.float32).contiguous()
+    n_t = pts.shape[0] if tgt is None else tgt.shape[0]
     gid = torch.as_tensor(group_ids, device=pts.device)
-    if num_groups == 0:
-        return torch.zeros((pts.shape[0], 0), dtype=torch.float32,
+    if num_groups == 0 or n_t == 0:
+        return torch.zeros((n_t, num_groups), dtype=torch.float32,
                            device=pts.device)
     if pts.device.type == "cpu":
-        return point_group_interaction_plain(pts, gid, num_groups, eps)
-    return fields_cuda.point_group(pts, gid, num_groups, eps)
+        return point_group_interaction_plain(pts, gid, num_groups, eps, tgt)
+    return fields_cuda.point_group(pts, gid, num_groups, eps, targets=tgt)
 
 
 def _xie_tile(t: torch.Tensor, sources: torch.Tensor, C: torch.Tensor) -> torch.Tensor:

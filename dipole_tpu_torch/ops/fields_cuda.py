@@ -213,12 +213,20 @@ def group_chunks(offsets: torch.Tensor, n_max: int) -> torch.Tensor:
 
 
 def point_group(pts: torch.Tensor, group_ids: torch.Tensor, num_groups: int,
-                eps: float) -> torch.Tensor:
-    """F (N, G), F[i, g] = sum over j with group_ids[j] == g of I[i, j], from
-    points (N, 6) that are both targets and sources; ids outside [0, G)
-    contribute nowhere — on the card, by csrc/group.cu. The kernel writes
-    F transposed; the result is the (N, G) view of that (G, N) buffer."""
+                eps: float, targets: torch.Tensor | None = None) -> torch.Tensor:
+    """F (T, G), F[i, g] = sum over j with group_ids[j] == g of I[i, j], from
+    source points (N, 6), which are the targets too unless targets (T, 6)
+    are given; ids outside [0, G) contribute nowhere — on the card, by
+    csrc/group.cu. The grid's chunks are planned from the sources alone, and
+    a thread's targets each sum in source order, so a row of F does not
+    depend on the other targets of the call (a target shard gives the bits
+    of the whole call). The kernel writes F transposed; the result is the
+    (T, G) view of that (G, T) buffer."""
     check_tensor(pts, "pts", 6)
+    tgt = pts if targets is None else targets
+    check_tensor(tgt, "targets", 6)
+    if tgt.device != pts.device:
+        raise ValueError("targets and sources on different devices")
     if (not isinstance(group_ids, torch.Tensor) or group_ids.device != pts.device
             or group_ids.shape != pts.shape[:1]):
         raise ValueError("group_ids: expected one id per point, on the "
@@ -227,7 +235,7 @@ def point_group(pts: torch.Tensor, group_ids: torch.Tensor, num_groups: int,
         raise ValueError(f"num_groups {num_groups} out of range")
     lib, fn = _build.entry("group", "dipole_group",
                            [_P, _N, _P, _P, _N, _P, _N, ctypes.c_float, _P, _P])
-    n = pts.shape[0]
+    n, n_t = pts.shape[0], tgt.shape[0]
     # sources sorted by group, stable (each group in index order), ids
     # outside [0, G) last; nothing is read back from the card
     gid = group_ids.to(torch.int64)
@@ -237,10 +245,10 @@ def point_group(pts: torch.Tensor, group_ids: torch.Tensor, num_groups: int,
         key, torch.arange(num_groups + 1, device=pts.device)).to(torch.int32)
     chunks = group_chunks(offsets, n)
     src = pts[order]
-    out_t = torch.empty((num_groups, n), dtype=torch.float32, device=pts.device)
+    out_t = torch.empty((num_groups, n_t), dtype=torch.float32, device=pts.device)
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(pts.data_ptr(), n, src.data_ptr(), offsets.data_ptr(),
+        err = fn(tgt.data_ptr(), n_t, src.data_ptr(), offsets.data_ptr(),
                  num_groups, chunks.data_ptr(), chunks.shape[0] - 1,
                  float(eps), out_t.data_ptr(), stream)
     _build.check(lib, err, "dipole_group")

@@ -46,6 +46,10 @@ card each is one batched launch (csrc/greedy.cu's and csrc/replay.cu's
 batched entries), on the CPU a plain loop a lane; the JAX package's
 power-of-two batch and bucket padding only limited XLA compiles, and the
 port has none.
+
+Under a mesh (parallel/sharding.py) the patch propagations shard the group
+interaction's target rows and the rest-point field pass, and the order
+replay column-shards its matrix (without a kNN mask or weights).
 """
 from __future__ import annotations
 
@@ -271,13 +275,21 @@ def _flattest_patch(pts: np.ndarray, patch_list) -> int:
     return int(np.argmin(e0))
 
 
-def _patch_fields(work: np.ndarray, seg: np.ndarray, P: int, dev):
+def _patch_fields(work: np.ndarray, seg: np.ndarray, P: int, dev, mesh=None):
     """(F, W, seg tensor): the group interaction F[i, q] of the weighted
     points (N, 6) on `dev`, and the patch-patch weights W[p, q] = sum of
     F[i, q] over the points i of patch p (a one-hot product, the same sum on
-    every run) as a float64 host array."""
+    every run) as a float64 host array. With a mesh, F's target rows are
+    sharded over it (parallel.sharding.point_group_interaction_sharded,
+    bit-equal to the one-device F; JAX propagate.py:353-361)."""
     seg_t = torch.as_tensor(seg, dtype=torch.int64, device=dev)
-    F = fields.point_group_interaction(as_f32(work, dev), seg_t, P, eps=1e-5)
+    if mesh is not None:
+        from dipole_tpu_torch.parallel.sharding import point_group_interaction_sharded
+
+        F = torch.as_tensor(point_group_interaction_sharded(work, seg, P, mesh,
+                                                            eps=1e-5), device=dev)
+    else:
+        F = fields.point_group_interaction(as_f32(work, dev), seg_t, P, eps=1e-5)
     onehot = torch.zeros((len(seg), P), dtype=torch.float32, device=dev)
     onehot[torch.arange(len(seg), device=dev), seg_t] = 1.0
     W = (onehot.t() @ F).cpu().numpy()
@@ -293,21 +305,32 @@ def _diffuse_acc(F: torch.Tensor, seg_t: torch.Tensor, sign: np.ndarray):
     return (F @ sign_t - own * sign_t[seg_t]).cpu().numpy()
 
 
+def _stage(mesh, stage: str, n: int, dev):
+    """The mesh a propagation stage runs on: a Mesh, a count or 'auto' as
+    api.resolve_mesh takes them, then api.stage_mesh's decision."""
+    from dipole_tpu_torch.api import resolve_mesh, stage_mesh
+
+    return stage_mesh(resolve_mesh(mesh, dev), stage, n)
+
+
 def strongest_field_propagation_patches(pts, filtered_patches, all_patches,
                                         diffuse: bool = False, weights=None,
-                                        device="cuda") -> np.ndarray:
+                                        mesh=None, device="cuda") -> np.ndarray:
     """Patch-level greedy propagation (reference field_utils.py:286-348, JAX
     propagate.py:365-422). pts (N, 6); all_patches: index arrays covering
     every point; filtered_patches: (patch_id, index array) pairs whose points
     get the diffuse per-point re-vote; weights: optional per-point confidence,
     clamped to [0.1, 1], scaling the normals during propagation
-    (weighted_prop). Returns a new oriented (N, 6) numpy array."""
+    (weighted_prop). mesh: the pair work behind F splits its target rows
+    over the mesh's devices (identical results). Returns a new oriented
+    (N, 6) numpy array."""
     dev = resolve_device(device)
     pts = np.asarray(pts, dtype=np.float32)
     n = pts.shape[0]
     P = len(all_patches)
     if P == 0:
         return pts.copy()
+    mesh = _stage(mesh, "patch", n, dev)
     seg = np.zeros(n, dtype=np.int32)
     for p, idx in enumerate(all_patches):
         seg[np.asarray(idx)] = p
@@ -315,7 +338,7 @@ def strongest_field_propagation_patches(pts, filtered_patches, all_patches,
     if weights is not None:
         work[:, 3:6] *= np.clip(np.asarray(weights, np.float32), 0.1, 1.0)[:, None]
 
-    F, W, seg_t = _patch_fields(work, seg, P, dev)
+    F, W, seg_t = _patch_fields(work, seg, P, dev, mesh)
     sign = _greedy_patch_signs(W, _flattest_patch(pts, all_patches))
 
     total = sign[seg].copy()                             # per-point sign
@@ -332,19 +355,22 @@ def strongest_field_propagation_patches(pts, filtered_patches, all_patches,
 
 
 def strongest_field_propagation_reps(pts, reps, diffuse: bool = False,
-                                     weights=None, device="cuda") -> np.ndarray:
+                                     weights=None, mesh=None,
+                                     device="cuda") -> np.ndarray:
     """Representative-point propagation for large clouds (reference
     field_utils.py:207-282, JAX propagate.py:425-502): the greedy runs on
     the representatives of each patch (reps: (rep index array, rest index
     array) per patch); rest points inherit their patch's sign, then each is
     re-voted by the field of all oriented representatives (fields.field_grad,
-    csrc/field.cu on the card)."""
+    csrc/field.cu on the card). mesh: F's target rows and the rest points'
+    field pass shard over the mesh's devices (JAX propagate.py:425-502)."""
     dev = resolve_device(device)
     pts = np.asarray(pts, dtype=np.float32)
     n = pts.shape[0]
     P = len(reps)
     if P == 0:
         return pts.copy()
+    mesh = _stage(mesh, "patch", n, dev)
     work = pts.copy()
     if weights is not None:
         work[:, 3:6] *= np.clip(np.asarray(weights, np.float32), 0.1, 1.0)[:, None]
@@ -352,7 +378,7 @@ def strongest_field_propagation_reps(pts, reps, diffuse: bool = False,
     rep_concat = np.concatenate([np.asarray(r) for r, _ in reps])
     rep_seg = np.concatenate(
         [np.full(len(np.asarray(r)), p, np.int32) for p, (r, _) in enumerate(reps)])
-    F, W, seg_t = _patch_fields(work[rep_concat], rep_seg, P, dev)
+    F, W, seg_t = _patch_fields(work[rep_concat], rep_seg, P, dev, mesh)
     sign_patch = _greedy_patch_signs(
         W, _flattest_patch(work, [np.asarray(r) for r, _ in reps]))
 
@@ -378,8 +404,13 @@ def strongest_field_propagation_reps(pts, reps, diffuse: bool = False,
     if rest_concat.size:
         srcs = work[rep_concat].copy()
         srcs[:, 3:6] *= total[rep_concat][:, None]
-        E = fields.field_grad(as_f32(srcs, dev),
-                              as_f32(work[rest_concat, :3], dev)).cpu().numpy()
+        if mesh is not None:
+            from dipole_tpu_torch.parallel.sharding import field_grad_sharded
+
+            E = field_grad_sharded(srcs, work[rest_concat, :3], mesh, shard="targets")
+        else:
+            E = fields.field_grad(as_f32(srcs, dev),
+                                  as_f32(work[rest_concat, :3], dev)).cpu().numpy()
         cur_n = work[rest_concat, 3:6] * total[rest_concat][:, None]
         inter = (E * cur_n).sum(-1)
         vote = np.where(inter > 0, 1.0, -1.0).astype(np.float32)
@@ -554,7 +585,8 @@ def _replay(I, orders, knn_idx, colw):
 def xie_propagation_in_order(pts, orders, eps: float = 1e-2,
                              diffuse: bool = False, C: float = 3.0,
                              knn_mask: int = -1, points_weight=None,
-                             kernel: str = "xie", device="cuda") -> np.ndarray:
+                             kernel: str = "xie", mesh=None,
+                             device="cuda") -> np.ndarray:
     """Order-driven batch replay (reference field_utils.py:569-605, JAX
     propagate.py:706-766): T orders (T, S) advanced in lock-step against one
     interaction matrix. Returns the (T, N) bool flip mask.
@@ -565,12 +597,23 @@ def xie_propagation_in_order(pts, orders, eps: float = 1e-2,
     eps. points_weight scales each source column (the reference's declared
     intent). knn_mask > 0 keeps pair (i, j) iff i is among j's nearest, in
     index form. diffuse re-votes every point by all recorded weights:
-    wq @ I^T (float32 matmul, TF32 off), or the mask's pairs in float64."""
+    wq @ I^T (float32 matmul, TF32 off), or the mask's pairs in float64.
+    mesh: without a kNN mask and without weights, the matrix is
+    column-sharded over the mesh's devices
+    (parallel.sharding.xie_in_order_sharded; JAX propagate.py:795-799); the
+    masked and weighted variants stay on one device, as in the JAX
+    package."""
     dev = resolve_device(device)
     if kernel not in ("xie", "dipole"):
         raise ValueError(f"unknown kernel {kernel!r}")
     pts = np.asarray(pts, dtype=np.float32)
     orders = _check_orders(orders, len(pts))
+    mesh = _stage(mesh, "replay", len(pts), dev)
+    if mesh is not None and knn_mask <= 0 and points_weight is None:
+        from dipole_tpu_torch.parallel.sharding import xie_in_order_sharded
+
+        return xie_in_order_sharded(pts, orders, mesh, C=C, eps=eps,
+                                    diffuse=diffuse, kernel=kernel)
     knn_idx = colw = None
     if knn_mask > 0:
         knn_idx = torch.as_tensor(_knn_idx(pts, knn_mask), device=dev)
@@ -647,11 +690,9 @@ def xie_propagation_bfs_tree(pts, eps: float = 1e-2, diffuse: bool = False,
     field_utils.py:657-710, JAX propagate.py:769-807): `times` BFS orders
     from a thresholded kNN graph, replayed in lock-step, the runs aligned by
     solving the binary pairwise XOR problem exactly (replacing Gurobi), the
-    flips majority-voted. mesh above one device raises (the multi-device
-    slice). Returns (oriented_pts, flip_mask)."""
-    from dipole_tpu_torch.api import resolve_mesh
-
-    resolve_mesh(mesh)
+    flips majority-voted. mesh: the replay's (xie_propagation_in_order's),
+    sharded without a kNN mask and without weights only. Returns
+    (oriented_pts, flip_mask)."""
     if times <= 0 or times % 2 != 1:
         raise ValueError("times must be a positive odd number")
     pts = np.asarray(pts, dtype=np.float32)
@@ -660,7 +701,7 @@ def xie_propagation_bfs_tree(pts, eps: float = 1e-2, diffuse: bool = False,
                                        use_pw=use_pw)
     flips = xie_propagation_in_order(
         pts, orders, eps=eps, diffuse=diffuse, C=C, knn_mask=knn_mask,
-        points_weight=points_weight, kernel=kernel, device=device).T
+        points_weight=points_weight, kernel=kernel, mesh=mesh, device=device).T
     return align_and_vote(pts, flips)
 
 

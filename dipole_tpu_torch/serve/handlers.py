@@ -9,32 +9,45 @@ reference's warning path (socket_server_para.py:70-75). Every handler takes
 `device` (default "cuda"). With a `batcher` (serve/batching.MicroBatcher,
 the threaded server's), simple_estimate and tree_xie_propagation without a
 kNN mask run their device stages micro-batched with concurrent requests.
-The server mesh comes with the multi-device slice: a mesh above one device
-raises.
+The server-wide mesh (set_mesh, --mesh) shards every request's device work
+as api.stage_mesh decides; under a mesh the micro-batcher is bypassed for
+the stages that shard. `dispatch(..., mesh=)` runs one call under another
+mesh.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from dipole_tpu_torch import graphs
+from dipole_tpu_torch.api import _mesh_for, resolve_mesh, stage_mesh
 from dipole_tpu_torch.device import resolve_device
 from dipole_tpu_torch.ops import fields, propagate
 from dipole_tpu_torch.ops.estimate import estimate_normals
-from dipole_tpu_torch.utils.io import Transform
+from dipole_tpu_torch.utils.io import Transform, gen_grid
 
 __all__ = ["HANDLERS", "dispatch", "set_mesh", "get_mesh"]
 
 
-def set_mesh(mesh) -> None:
-    """The server-wide mesh: one device only (a count above 1 raises,
-    naming the multi-device slice)."""
-    from dipole_tpu_torch.api import resolve_mesh
+# the server-wide mesh (None: one device), set once at server start
+_MESH = None
 
-    resolve_mesh(mesh)
+
+def set_mesh(mesh, device="cuda") -> None:
+    """Set the server-wide mesh: a Mesh, a device count or 'auto'
+    (api.resolve_mesh on `device`; a count above the cards there raises
+    ValueError). None, 1 or 'off' mean one device."""
+    global _MESH
+    _MESH = resolve_mesh(mesh, device)
 
 
 def get_mesh():
-    return None
+    return _MESH
+
+
+def _mesh(mesh, dev):
+    """The mesh a call runs under: `mesh` if given, else the server's;
+    its devices must be of dev's type."""
+    return _mesh_for(_MESH if mesh is None else mesh, dev)
 
 
 def _prep(xyz_data: np.ndarray, max_nn: int, dev):
@@ -43,40 +56,59 @@ def _prep(xyz_data: np.ndarray, max_nn: int, dev):
     return Transform.trans(pc)
 
 
-def _finish(pc: np.ndarray, transform: Transform, dev) -> np.ndarray:
-    if fields.measure_mean_potential(pc, device=dev) < 0:
+def _finish(pc: np.ndarray, transform: Transform, dev, mesh=None) -> np.ndarray:
+    m = stage_mesh(mesh, "sign_fix")
+    if m is not None:
+        from dipole_tpu_torch.parallel.sharding import potential_sharded
+
+        mean = float(potential_sharded(pc, gen_grid(10), m).mean())
+    else:
+        mean = fields.measure_mean_potential(pc, device=dev)
+    if mean < 0:
         pc[:, 3:6] *= -1
     return transform.inverse(pc).astype(np.float64)
 
 
-def simple_estimate(xyz_data, config, device="cuda"):
+def simple_estimate(xyz_data, config, device="cuda", mesh=None):
     dev = resolve_device(device)
+    mesh = _mesh(mesh, dev)
     pc, transform = _prep(xyz_data, 30, dev)
+    m = stage_mesh(mesh, "greedy", len(pc))
+    if m is not None:
+        from dipole_tpu_torch.parallel.sharding import orient_points_multichip
+
+        # propagation and sign fix in one sharded pass (the same decisions)
+        pc = orient_points_multichip(pc, m, diffuse=config.get("diffuse", True),
+                                     starting_point=0)
+        return transform.inverse(pc).astype(np.float64)
     pc = propagate.strongest_field_propagation_points(
         pc, diffuse=config.get("diffuse", True), starting_point=0, device=dev)
-    return _finish(pc, transform, dev)
+    return _finish(pc, transform, dev, mesh)
 
 
-def xie_propagation(xyz_data, config, device="cuda"):
+def xie_propagation(xyz_data, config, device="cuda", mesh=None):
     dev = resolve_device(device)
+    mesh = _mesh(mesh, dev)
     pc, transform = _prep(xyz_data, config["max_nn"], dev)
     pc = propagate.xie_propagation_points(
         pc, eps=config["eps"], diffuse=config["diffuse"], starting_point=0,
         device=dev)
-    return _finish(pc, transform, dev)
+    return _finish(pc, transform, dev, mesh)
 
 
-def tree_xie_propagation(xyz_data, config, device="cuda"):
+def tree_xie_propagation(xyz_data, config, device="cuda", mesh=None):
     dev = resolve_device(device)
+    mesh = _mesh(mesh, dev)
     pc, transform = _prep(xyz_data, config["max_nn"], dev)
     pc, _ = propagate.xie_propagation_bfs_tree(
         pc, eps=config["eps"], diffuse=config["diffuse"],
         times=config["times"], starting_point=0,
-        knn_mask=config.get("knn_mask", -1), C=config.get("C", 3), device=dev)
-    return _finish(pc, transform, dev)
+        knn_mask=config.get("knn_mask", -1), C=config.get("C", 3),
+        mesh=stage_mesh(mesh, "replay", len(pc)), device=dev)
+    return _finish(pc, transform, dev, mesh)
 
 
-def hoppe_estimate(xyz_data, config, device="cuda"):
+def hoppe_estimate(xyz_data, config, device="cuda", mesh=None):
     dev = resolve_device(device)
     pc = np.asarray(xyz_data, dtype=np.float32)
     pc = estimate_normals(pc, max_nn=config.get("k_neighbor", 10),
@@ -85,7 +117,7 @@ def hoppe_estimate(xyz_data, config, device="cuda"):
     return pc.astype(np.float64)
 
 
-def graph_dipole_estimate(xyz_data, config, device="cuda"):
+def graph_dipole_estimate(xyz_data, config, device="cuda", mesh=None):
     from dipole_tpu_torch.pipelines.graph_dipole import graph_dipole_server_api
 
     return graph_dipole_server_api(xyz_data, config,
@@ -102,7 +134,10 @@ HANDLERS = {
 
 
 def dispatch(function_name: str, xyz_data: np.ndarray, config: dict,
-             log=None, batcher=None, device="cuda") -> np.ndarray:
+             log=None, batcher=None, device="cuda", mesh=None) -> np.ndarray:
+    """Run handler `function_name` on xyz_data, under `mesh` if given, else
+    under the server-wide mesh (set_mesh). The micro-batcher takes a request
+    only where the mesh keeps its stage on one device."""
     if function_name not in HANDLERS:
         raise ValueError(f"Unknown method: {function_name}")
     max_nn = config.get("max_nn", 30)
@@ -116,13 +151,16 @@ def dispatch(function_name: str, xyz_data: np.ndarray, config: dict,
         out = np.ones((len(xyz_data), 6))
         out[:, :3] = xyz_data
         return out
-    if batcher is not None and function_name == "simple_estimate":
+    m = _mesh(mesh, resolve_device(device))
+    if batcher is not None and function_name == "simple_estimate" \
+            and stage_mesh(m, "greedy", len(xyz_data)) is None:
         from dipole_tpu_torch.serve.batching import batched_simple_estimate
 
         return batched_simple_estimate(batcher, xyz_data, config, device=device)
     if batcher is not None and function_name == "tree_xie_propagation" \
+            and stage_mesh(m, "replay", len(xyz_data)) is None \
             and config.get("knn_mask", -1) <= 0:
         from dipole_tpu_torch.serve.batching import batched_tree_xie
 
         return batched_tree_xie(batcher, xyz_data, config, device=device)
-    return HANDLERS[function_name](xyz_data, config, device=device)
+    return HANDLERS[function_name](xyz_data, config, device=device, mesh=m)

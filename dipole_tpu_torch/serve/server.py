@@ -75,13 +75,13 @@ def main(argv=None):
     parser.add_argument("--self_test", action="store_true")
     parser.add_argument("--mesh", type=str,
                         default=os.environ.get("DIPOLE_TPU_MESH"),
-                        help="multi-device: device count or 'auto' (a count "
-                             "above 1 is not ported yet and raises)")
+                        help="multi-device: device count or 'auto' (with "
+                             "--device cpu, N CPU shards)")
     args = parser.parse_args(argv)
     if args.mesh:
         from dipole_tpu_torch.serve import handlers as _handlers
 
-        _handlers.set_mesh(args.mesh)
+        _handlers.set_mesh(args.mesh, device=parse_device(args.device))
     if args.self_test:
         test_api(device=parse_device(args.device))
     serve(args.host, args.port, args.device)

@@ -271,7 +271,7 @@ def main(argv=None):
                         default=os.environ.get("DIPOLE_TPU_MESH"),
                         help="multi-device: device count or 'auto' "
                              "(default: DIPOLE_TPU_MESH env; unset = 1 device; "
-                             "a count above 1 is not ported yet and raises)")
+                             "with --device cpu, N CPU shards)")
     parser.add_argument("--no_microbatch", action="store_true",
                         help="disable fusing concurrent requests into one "
                              "batched device call")
@@ -283,7 +283,7 @@ def main(argv=None):
     if args.mesh:
         from dipole_tpu_torch.serve import handlers
 
-        handlers.set_mesh(args.mesh)
+        handlers.set_mesh(args.mesh, device=device)
     Path(args.log_dir).mkdir(parents=True, exist_ok=True)
     if args.warmup:
         warmup([int(x) for x in args.warmup.split(",") if x],

@@ -5,8 +5,8 @@ the consistent orientation, trained on synthetically flipped patches (class
 1 = keep, class 0 = flip, the voting convention of inference_utils.py:47-49)
 or on patches of real clouds with ground-truth normals.
 
-The JAX package jits one SPMD step over a (data, model) mesh; the port runs
-one device (`mesh` wider than one raises, ROADMAP.md §1 item 4). The
+The JAX package jits one SPMD step over a (data, model) mesh; the port trains
+on one device (`mesh` wider than one raises, ROADMAP.md §1 item 4). The
 forward is models/pointcnn.PointCNN, whose kNN and FPS are the CUDA kernels
 on the card; its gradients go through torch autograd over plain ops, as the
 JAX package's go through XLA outside its Pallas kernels. The optimizer is
@@ -288,14 +288,22 @@ class ClipAdamW:
         torch._foreach_add_(self.params, upd)
 
 
+_TRAINING_SLICE = ("training under a mesh (data parallelism and the 'model' "
+                   "axis's tensor sharding, JAX train.py:233-297) is the "
+                   "next slice of the port (ROADMAP.md §1 item 4); train on "
+                   "one device")
+
+
 def param_sharding(mesh, params: dict) -> dict:
     """The JAX package shards the widest weights over a 'model' mesh axis
     (JAX train.py:230-244). The port trains on one device: every parameter
     whole on it ({name: None}); a mesh of more than one device raises
-    (ROADMAP.md §1 item 4)."""
+    NotImplementedError, naming the training slice (ROADMAP.md §1 item 4)."""
     from dipole_tpu_torch.api import resolve_mesh
 
-    resolve_mesh(mesh)
+    # a count resolves on the CPU, so no card is needed to refuse it
+    if resolve_mesh(mesh, "cpu") is not None:
+        raise NotImplementedError(f"mesh={mesh!r}: {_TRAINING_SLICE}")
     return {k: None for k in params}
 
 

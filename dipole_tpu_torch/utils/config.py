@@ -2,8 +2,9 @@
 (dipole_tpu/utils/config.py, reference options.py:5-32), plus --device.
 
 --device is the counterpart of JAX_PLATFORMS: "cuda" (the default) or "cpu".
---mesh is parsed as in the JAX package; a device count above 1 raises
-NotImplementedError in the API until the multi-device slice lands."""
+--mesh is parsed as in the JAX package and reaches the API's `mesh`: a
+device count (the first N cards; with --device cpu, N CPU shards) or 'auto'
+(api.resolve_mesh)."""
 from __future__ import annotations
 
 import argparse

@@ -102,8 +102,16 @@ def test_single_device_mesh_values_run(mesh):
 
 @pytest.mark.parametrize("mesh", [2, "4"])
 def test_multi_device_mesh_raises(mesh):
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        api.orient_simple(make_sphere(20, seed=45), mesh=mesh, device="cpu")
+    """A count above 1 is a mesh: on the CPU, that many CPU shards, whose
+    sharded greedy and sign fix give the one-device output; on the card a
+    count above the cards there raises ValueError, as in the JAX package."""
+    pc, _ = scramble_signs(make_sphere(60, seed=45), seed=46)
+    got = api.orient_simple(pc, diffuse=True, mesh=mesh, device="cpu")
+    np.testing.assert_array_equal(got, api.orient_simple(pc, diffuse=True,
+                                                         device="cpu"))
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match="available"):
+        api.resolve_mesh(cards + int(mesh), "cuda")
 
 
 @pytest.mark.parametrize("extra", [[], ["--estimate_normals"]],

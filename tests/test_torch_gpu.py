@@ -1114,3 +1114,140 @@ def test_forward_precanon_on_card_matches_cpu(cuda_device):
     want = pointcnn.pointcnn_logits_batched(cpu, canon, starts=starts, precanon=True)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# multi-device: a virtual mesh of four shards on one card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def vmesh(cuda_device):
+    from dipole_tpu_torch.parallel import sharding
+
+    return sharding.Mesh([torch.device("cuda", 0)] * 4)
+
+
+def _zero_counts():
+    for d in (fields_cuda.LAUNCHES, propagate_cuda.LAUNCHES, neighbors_cuda.LAUNCHES,
+              fields.PLAIN_CUDA_CALLS, propagate.PLAIN_CUDA_CALLS,
+              neighbors.PLAIN_CUDA_CALLS):
+        d.update({k: 0 for k in d})
+
+
+def _no_plain_calls():
+    return not any(v for d in (fields.PLAIN_CUDA_CALLS, propagate.PLAIN_CUDA_CALLS,
+                               neighbors.PLAIN_CUDA_CALLS) for v in d.values())
+
+
+def test_sharded_fields_on_virtual_mesh(vmesh):
+    """Each shard launches the field, potential and group kernels: the field
+    and potential within their tolerances of the one-device kernel (field.cu
+    and potential.cu plan their chunks from the shard's shape), the group
+    bit-equal (its plan reads the sources only)."""
+    from dipole_tpu_torch.parallel import sharding
+
+    dev = vmesh.devices[0]
+    src = torch.as_tensor(sphere(3000, 61), device=dev)
+    tgt = torch.as_tensor(sphere(5000, 62)[:, :3] * 1.3, device=dev)
+    want = fields.field_grad(src, tgt)
+    tol = 1e-4 * want.abs() + 1e-5 * float(want.abs().max())
+    _zero_counts()
+    for mode in ("targets", "sources", "ring"):
+        got = torch.as_tensor(sharding.field_grad_sharded(src, tgt, vmesh, shard=mode),
+                              device=dev)
+        assert bool(((got - want).abs() <= tol).all()), mode
+    assert fields_cuda.LAUNCHES["dipole_field"] >= 4 + 4 + 16
+    grid = torch.as_tensor(gen_grid(10), device=dev)
+    want = fields.potential(src, grid)
+    for mode in ("sources", "ring"):
+        got = torch.as_tensor(sharding.potential_sharded(src, grid, vmesh, shard=mode),
+                              device=dev)
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+    gid = torch.as_tensor(np.random.default_rng(63).integers(0, 37, 3000), device=dev)
+    want = fields.point_group_interaction(src, gid, 37)
+    got = sharding.point_group_interaction_sharded(src, gid, 37, vmesh)
+    assert torch.equal(torch.as_tensor(got, device=dev), want)
+    signs = np.where(np.random.default_rng(64).random(3000) < 0.5, -1.0, 1.0)
+    I = fields.dipole_interaction_matrix(src, eps=1e-5)
+    exact = (I @ torch.as_tensor(signs, dtype=torch.float32, device=dev)).cpu().numpy()
+    scale = I.abs().sum(1).cpu().numpy()
+    for mode in ("ring", "sources"):
+        acc = sharding.interaction_accumulate_sharded(src, signs, vmesh, shard=mode)
+        assert np.all(np.abs(acc - exact) <= 1e-4 * scale + 1e-5), mode
+    assert fields_cuda.LAUNCHES["dipole_group"] == 5   # one + four shards
+    assert _no_plain_calls()
+
+
+def test_sharded_loops_on_virtual_mesh(vmesh):
+    """The sharded greedy and replay (plain torch loops, as XLA scans in the
+    JAX package) on the card: the one-device kernel path's decisions; the
+    replay's block matrices by imatrix.cu's general modes."""
+    from dipole_tpu_torch.parallel import sharding
+
+    pc = sphere(2000, 65)
+    acc_m, sign_m = sharding.greedy_sign_sequence_sharded(pc, vmesh)
+    acc_s, sign_s = propagate.greedy_sign_sequence(pc, device=vmesh.devices[0])
+    assert (sign_m == sign_s.cpu().numpy()).all()
+    assert np.allclose(acc_m, acc_s.cpu().numpy(), rtol=1e-3, atol=1e-3)
+    orders, _ = propagate.bfs_orders(pc, 0, times=3)
+    _zero_counts()
+    for kernel in ("xie", "dipole"):
+        for diffuse in (False, True):
+            got = sharding.xie_in_order_sharded(pc, orders, vmesh, kernel=kernel,
+                                                diffuse=diffuse)
+            want = propagate.xie_propagation_in_order(pc, orders, kernel=kernel,
+                                                      diffuse=diffuse,
+                                                      device=vmesh.devices[0])
+            assert (got == want).mean() >= 0.99, (kernel, diffuse)
+    assert fields_cuda.LAUNCHES["xie_imatrix"] >= 8 and fields_cuda.LAUNCHES["dipole_imatrix"] >= 8
+    assert _no_plain_calls()
+
+
+def test_sharded_ensemble_forward_on_virtual_mesh(vmesh):
+    """The ensemble forward split over the shards: each launches the kNN and
+    FPS kernels; the per-patch logits of the one-device forward."""
+    from dipole_tpu_torch.models import pointcnn
+    from dipole_tpu_torch.utils import prng
+
+    model = pointcnn.PointCNN.from_files(CKPT).to(vmesh.devices[0])
+    patches = [sphere(n, 70 + n) for n in (500, 128, 77, 300, 211, 90, 400, 150, 260)]
+    key = prng.prng_key(3)
+    want = pointcnn.pointcnn_logits_batched(model, patches, key=key)
+    _zero_counts()
+    got = pointcnn.pointcnn_logits_batched(model, patches, key=key, mesh=vmesh)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-5)
+    assert neighbors_cuda.LAUNCHES["knn"] >= 4 * 5 and neighbors_cuda.LAUNCHES["fps"] >= 4 * 2
+    assert _no_plain_calls()
+
+
+def test_api_and_handlers_on_virtual_mesh(vmesh, tmp_path):
+    """orient_simple and the server handlers under the mesh: the one-device
+    output."""
+    from dipole_tpu_torch.serve import handlers
+
+    pc = sphere(1500, 71)
+    want = api.orient_simple(pc, diffuse=True, device="cuda")
+    np.testing.assert_array_equal(
+        api.orient_simple(pc, diffuse=True, mesh=vmesh, device="cuda"), want)
+    xyz = sphere(1500, 72)[:, :3].astype(np.float64)
+    one = handlers.dispatch("simple_estimate", xyz, {}, device="cuda")
+    try:
+        handlers.set_mesh(vmesh)
+        np.testing.assert_array_equal(
+            handlers.dispatch("simple_estimate", xyz, {}, device="cuda"), one)
+    finally:
+        handlers.set_mesh(None)
+
+
+def test_mesh_mixing_cpu_and_cuda_raises(cuda_device):
+    from dipole_tpu_torch.parallel import sharding
+
+    with pytest.raises(ValueError, match="one type"):
+        sharding.Mesh([torch.device("cpu"), cuda_device])
+    with pytest.raises(ValueError, match="does not run"):
+        api.orient_simple(sphere(100, 73), mesh=sharding.make_mesh(2, device="cpu"),
+                          device="cuda")
+    with pytest.raises(ValueError, match="available"):
+        sharding.make_mesh(torch.cuda.device_count() + 1)

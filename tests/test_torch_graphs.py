@@ -9,6 +9,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from dipole_tpu import api as japi
 from dipole_tpu import graphs as jgraphs
@@ -175,9 +176,20 @@ def test_dispatch_placeholder_batcher_and_unknown():
     out = handlers.dispatch("simple_estimate", gt[:, :3].astype(np.float64), {},
                             batcher=b, device="cpu")
     assert out.shape == (60, 6) and b.jobs_run == 1
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        handlers.set_mesh(4)
-    handlers.set_mesh(1)
+    # a server mesh of more cards than exist raises, as in the JAX package;
+    # a CPU mesh runs, bypasses the batcher and gives the one-device reply
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match="available"):
+        handlers.set_mesh(cards + 4)
+    try:
+        handlers.set_mesh(4, device="cpu")
+        assert handlers.get_mesh().size == 4
+        meshed = handlers.dispatch("simple_estimate", gt[:, :3].astype(np.float64),
+                                   {}, batcher=b, device="cpu")
+        assert b.jobs_run == 1
+        np.testing.assert_array_equal(meshed, out)
+    finally:
+        handlers.set_mesh(1)
     assert handlers.get_mesh() is None
 
 

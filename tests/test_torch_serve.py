@@ -227,15 +227,30 @@ def test_port_client_against_the_jax_server(tmp_path):
         srv.stop()
 
 
-def test_device_flag_and_mesh(tmp_path):
+def test_device_flag_and_mesh(tmp_path, monkeypatch):
     assert server_para.parse_device("1") == "cuda:1"
     assert server_para.parse_device("cuda:2") == "cuda:2"
     assert server_para.parse_device("cpu") == "cpu"
     assert Server(port=0, log_dir=str(tmp_path), device="cpu").device.type == "cpu"
     assert Server(port=0, log_dir=str(tmp_path), microbatch=False,
                   device="cpu").batcher is None
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        server_para.main(["--device", "cpu", "--mesh", "4", "--log_dir", str(tmp_path)])
+    # --mesh reaches the handlers: 4 CPU shards under --device cpu, and
+    # more cards than exist raise ValueError, as in the JAX package
+    monkeypatch.setattr(Server, "serve_forever", lambda self: None)
+    try:
+        server_para.main(["--device", "cpu", "--mesh", "4", "--port", "0",
+                          "--log_dir", str(tmp_path)])
+        assert handlers.get_mesh().size == 4 and handlers.get_mesh().type == "cpu"
+        xyz = _sphere_xyz(100, 9)
+        meshed = handlers.dispatch("simple_estimate", xyz, {}, device="cpu")
+        handlers.set_mesh(None)
+        np.testing.assert_array_equal(
+            meshed, handlers.dispatch("simple_estimate", xyz, {}, device="cpu"))
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        with pytest.raises(ValueError, match="available"):
+            handlers.set_mesh(str(cards + 4))
+    finally:
+        handlers.set_mesh(None)
 
 
 def test_single_threaded_server_self_test_and_round_trip():

@@ -268,11 +268,17 @@ def test_bfs_tree_matches_jax(kernel, masked, use_pw):
 
 
 def test_bfs_tree_refuses_even_times_and_a_mesh():
+    """Even `times` raise; a mesh (4 CPU shards) column-shards the replay and
+    gives the one-device output (tests/test_torch_sharding.py holds it to
+    the JAX package's mesh)."""
     pc = _cloud(50, 59)
     with pytest.raises(ValueError, match="odd"):
         propagate.xie_propagation_bfs_tree(pc, times=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        propagate.xie_propagation_bfs_tree(pc, times=1, mesh=4, device="cpu")
+    got, got_mask = propagate.xie_propagation_bfs_tree(pc, times=1, mesh=4,
+                                                       device="cpu")
+    want, want_mask = propagate.xie_propagation_bfs_tree(pc, times=1, device="cpu")
+    np.testing.assert_array_equal(got_mask, want_mask)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_replay_refuses_bad_orders_and_kernels():
