@@ -224,6 +224,16 @@ Phases, one JSON line each:
                 (simple_estimate equal to one device, GT >= 0.99; tree_xie
                 GT >= 0.95); one line a run: seconds beside the one-device
                 run, launches, no plain call; the sharded loops' us a step.
+                Then the train_mesh phase: train_on_clouds recipe A at 16 x
+                512 on the train phase's corpus under the virtual meshes
+                Mesh([cuda:0] * 4, shape=(2, 2)) and (4, 1) (and make_mesh
+                over the cards where there are several): one step against
+                the one-device step (loss within 1e-5 relative, each
+                gradient within 1e-4 of its max |g|); 10 steps on one device
+                and on (2, 2), ms a step side by side (median of steps 3-9),
+                kNN and FPS launches a step (one device's times the data
+                rows), no plain call; the fixed-batch bar on (2, 2) and the
+                reload of the (2, 2)-trained model, logits bit-equal.
                 Then the vis phase: vis.draw_field_isosurface on the 10k
                 hand at res 48 (potential, then |E|; each lattice within its
                 kernel's tolerance of the plain version), plot_cross_section
@@ -2718,17 +2728,18 @@ def _step_kernel_vs_plain(model, data, dev) -> dict:
             "grad_max_rel_diff": grad_rel, "bit_equal": True}
 
 
-def _fixed_batch(dev) -> dict:
+def _fixed_batch(dev, mesh=None) -> dict:
     """tests/test_train_checkpoint.py:64-91 on the card at full width: a
     fixed 16 x 512 make_batch, 60 steps at lr 3e-3 from the calibrated
-    init, fixed FPS starts; max(acc of the last 10) > min(0.95, base + 0.15)."""
+    init, fixed FPS starts, on one device or under `mesh`; max(acc of the
+    last 10) > min(0.95, base + 0.15)."""
     from dipole_tpu_torch import train
     from dipole_tpu_torch.models.pointcnn import _pad_sizes, key_starts
     from dipole_tpu_torch.utils import prng
 
     n, pool = TRAIN_KW["bucket"], TRAIN_KW["pool"]
     model = train._fresh_model(prng.prng_key(0), train._probe_patch(0, n), pool, dev)
-    _opt, step = train.make_train_step(model, 3e-3, total_steps=60)
+    _opt, step = train.make_train_step(model, 3e-3, total_steps=60, mesh=mesh)
     pc, labels, valid = train.make_batch(prng.prng_key(1), TRAIN_KW["batch"], n)
     starts = key_starts(prng.prng_key(2), valid.sum(1), pool, _pad_sizes(n, pool)[0])
     accs = [float(step(pc, labels, valid, starts)[1]) for _ in range(60)]
@@ -3141,6 +3152,212 @@ def phase_mesh(gt10, gt30, cloud180, hand_out, hand180, lion, launches, dev) -> 
     return res
 
 
+MESH_TRAIN_SHAPES = ((2, 2), (4, 1))   # the train_mesh phase's virtual meshes
+
+
+def _train_corpus(hand10: np.ndarray, dev) -> list:
+    """The train phase's corpus, in train_on_clouds' order: the 10k hand's
+    patches (patches_from_cloud of the hand written as a .xyz), then the 199
+    mined states."""
+    import tempfile
+
+    from dipole_tpu_torch import train
+    from dipole_tpu_torch.utils.io import export_pc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hand = Path(tmp) / "hand10k.xyz"
+        export_pc(hand10, hand)
+        return train.patches_from_cloud(hand, device=dev) + _mined_states()
+
+
+def _train_run(corpus, steps: int, mesh, dev, timer=None):
+    """train_on_clouds recipe A at the train phase's 16 x 512, pool 0.6, lr
+    1e-3 and seed, `steps` steps on `corpus`, under `mesh` (1: one device,
+    where None would take every card): (the whole model, whose .grad is the
+    last step's gradient, history)."""
+    from dipole_tpu_torch import train
+
+    model, history, _ = train.train_on_clouds(
+        [], extra_data=corpus, verbose=False, device=dev, mesh=mesh, timer=timer,
+        **dict(TRAIN_KW, steps=steps), **TRAIN_RECIPE_A)
+    return model, history
+
+
+def _launch_step_timer():
+    """_step_split_timer's synchronized parts, and each step's kNN and FPS
+    launches (counted from the step's forward to its optimizer's end) in
+    `timer.launches`."""
+    import contextlib
+
+    split = _step_split_timer()
+    marks = []
+
+    @contextlib.contextmanager
+    def timer(label):
+        if label == "forward":
+            marks.append(dict(_read_counts()[0]))
+        with split(label):
+            yield
+        if label == "optimizer":
+            now = _read_counts()[0]
+            marks[-1] = {k: now[k] - marks[-1][k] for k in ("knn", "fps")}
+
+    timer.parts, timer.launches = split.parts, marks
+    return timer
+
+
+def _step_ms(parts: dict) -> list:
+    """Each step's synchronized ms, the sum of its parts."""
+    return [1e3 * sum(v) for v in zip(*parts.values())]
+
+
+def _grad_rel_diff(got, want) -> float:
+    """The largest |g - g_want| of any parameter over its max |g_want|, or
+    inf where the two models have gradients for different parameters."""
+    got = {k: p.grad for k, p in got.named_parameters() if p.grad is not None}
+    want = {k: p.grad for k, p in want.named_parameters() if p.grad is not None}
+    if got.keys() != want.keys():
+        return float("inf")
+    return max(float((got[k] - want[k]).abs().max())
+               / max(float(want[k].abs().max()), 1e-30) for k in want)
+
+
+def _plain_loss_step(mesh, dev) -> dict:
+    """One step of the non-gauge-free loss (sum(nll w) / sum(w) over the
+    whole batch) under `mesh` against one device, on the fixed 16 x 512
+    make_batch with patch b's valid points cut to 512 - 12 b (332 at the
+    least, above the 307 FPS points), so that the data rows' valid counts
+    differ: the loss within 1e-5 relative, each gradient within 1e-4 of its
+    max |g|. The mean of the rows' own losses is reported beside it, and
+    must miss the global loss by more than the loss tolerance, so that the
+    check tells the two apart."""
+    from dipole_tpu_torch import train
+    from dipole_tpu_torch.models.pointcnn import _pad_sizes, key_starts
+    from dipole_tpu_torch.utils import prng
+
+    n, pool, batch = TRAIN_KW["bucket"], TRAIN_KW["pool"], TRAIN_KW["batch"]
+    pc, labels, valid = train.make_batch(prng.prng_key(1), batch, n)
+    for b in range(batch):
+        valid[b, n - 12 * b:] = False
+        pc[b, n - 12 * b:] = 0
+        labels[b, n - 12 * b:] = 0
+    starts = key_starts(prng.prng_key(2), valid.sum(1), pool, _pad_sizes(n, pool)[0])
+    out = {}
+    for run, m in (("one", None), ("mesh", mesh)):
+        model = train._fresh_model(prng.prng_key(0), train._probe_patch(0, n), pool, dev)
+        _opt, step = train.make_train_step(model, 1e-3, total_steps=20, mesh=m)
+        out[run] = (float(step(pc, labels, valid, starts)[0]), step.gather())
+    (loss1, one), (loss, got) = out["one"], out["mesh"]
+    rows, b = mesh.shape["data"], batch // mesh.shape["data"]
+    with torch.no_grad():
+        row_means = [float(train.loss_fn(
+            one, *(torch.as_tensor(x[r * b:(r + 1) * b], device=dev)
+                   for x in (pc, labels, valid)), starts[r * b:(r + 1) * b])[0])
+            for r in range(rows)]
+    line = {"loss": loss, "loss_one_device": loss1,
+            "loss_rel_diff": abs(loss - loss1) / abs(loss1),
+            "grad_max_rel_diff": _grad_rel_diff(got, one),
+            "valid_per_row": [int(valid[r * b:(r + 1) * b].sum()) for r in range(rows)],
+            "mean_of_row_means_rel_diff": float(abs(np.mean(row_means) - loss1) / abs(loss1))}
+    require(line["mean_of_row_means_rel_diff"] > 1e-5,
+            f"plain-loss step: the rows' mean {row_means} does not tell apart "
+            f"from the global loss {loss1}")
+    require(line["loss_rel_diff"] <= 1e-5,
+            f"plain-loss step: loss off by {line['loss_rel_diff']}")
+    require(line["grad_max_rel_diff"] <= 1e-4,
+            f"plain-loss step: gradients off by {line['grad_max_rel_diff']} of max |g|")
+    return line
+
+
+def phase_train_mesh(hand10: np.ndarray, launches, dev) -> dict:
+    """Training under a mesh on the card: train_on_clouds recipe A at the
+    train phase's 16 x 512 on its corpus, on the virtual meshes
+    Mesh([cuda:0] * 4, shape=(2, 2)) and (4, 1), and on make_mesh over the
+    cards (data axis the largest divisor of the batch) where there are
+    several. One step on each from the one-device run's seed: the loss
+    within 1e-5 relative of the one-device step, each gradient summed over
+    the data rows within 1e-4 of its max |g| (tests/test_torch_train.py's
+    tolerances). Recipe A is gauge-free with equal patch counts a row, so
+    one step of the non-gauge-free loss with valid counts that differ
+    between the rows follows on (2, 2) (_plain_loss_step). Then 10 steps on one device and on (2, 2), each step
+    synchronized part by part: ms a step (median of steps 3-9) side by side,
+    kNN and FPS launches a step (the mesh's: the one-device count times the
+    data rows), no plain call, counts reset just before the mesh run and read
+    just after. Then the fixed 16 x 512 batch trained 60 steps at lr 3e-3 on
+    (2, 2) past the train phase's bar, and the (2, 2)-trained model through
+    save_state_dict -> PointCNN.from_files with bit-equal logits."""
+    from dipole_tpu_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    corpus = _train_corpus(hand10, dev)
+    batch = TRAIN_KW["batch"]
+    meshes = [(f"virtual{MESH_SHARDS}_{d}x{m}",
+               sharding.Mesh([torch.device("cuda", 0)] * MESH_SHARDS, shape=(d, m)))
+              for d, m in MESH_TRAIN_SHAPES]
+    if torch.cuda.device_count() > 1:
+        d = torch.cuda.device_count()
+        while batch % d:
+            d -= 1
+        meshes.append((f"cards{d}x1", sharding.make_mesh(d, shape=(d, 1))))
+    res = {"card": CARD.get("nvidia_smi"), "batch": batch, "bucket": TRAIN_KW["bucket"],
+           "recipe": TRAIN_RECIPE_A, "note": MESH_NOTE}
+    one, hist1 = _train_run(corpus, 1, 1, dev)
+    loss1 = hist1[0][0]
+    for label, mesh in meshes:
+        model, hist = _train_run(corpus, 1, mesh, dev)
+        loss_rel = abs(hist[0][0] - loss1) / abs(loss1)
+        grad_rel = _grad_rel_diff(model, one)
+        line = {"loss": hist[0][0], "loss_one_device": loss1, "loss_rel_diff": loss_rel,
+                "grad_max_rel_diff": grad_rel, "shape": mesh.shape}
+        res[f"{label}_one_step"] = line
+        emit({"phase": "train_mesh", "mesh": label, "run": "one_step", **line,
+              "rtol_loss": 1e-5, "rtol_grad_of_max": 1e-4, "card": CARD.get("nvidia_smi")})
+        require(loss_rel <= 1e-5, f"train_mesh {label}: loss off by {loss_rel}")
+        require(grad_rel <= 1e-4, f"train_mesh {label}: gradients off by {grad_rel} of max |g|")
+
+    label, mesh = meshes[0]
+    res["plain_loss_one_step"] = _plain_loss_step(mesh, dev)
+    emit({"phase": "train_mesh", "mesh": label, "run": "plain_loss_one_step",
+          **res["plain_loss_one_step"], "card": CARD.get("nvidia_smi")})
+    rows = mesh.shape["data"]
+    timers = {}
+    for run, m in (("one_device", 1), (label, mesh)):
+        timers[run] = _launch_step_timer()
+        torch.cuda.synchronize()
+        _reset_counts()
+        model, hist = _train_run(corpus, 10, m, dev, timers[run])
+        torch.cuda.synchronize()
+        counts, plain = _read_counts()
+        require(np.isfinite([h[0] for h in hist]).all(), f"train_mesh {run}: loss {hist}")
+    run = f"train_mesh_{label}_10_steps"
+    RUN_COUNTS[run] = counts
+    for name in ("knn", "fps"):
+        require(counts[name] > 0, f"{run}: kernel {name} not launched")
+        launches[name] = launches.get(name, 0) + counts[name]
+    require(not any(plain.values()), f"{run}: plain version called on CUDA: {plain}")
+    per_one, per_mesh = timers["one_device"].launches, timers[label].launches
+    require(all(m == {k: rows * v for k, v in o.items()} for o, m in zip(per_one, per_mesh)),
+            f"{run}: launches a step {per_mesh} against one device's {per_one} x {rows}")
+    ms_one, ms_mesh = (_step_ms(timers[r].parts) for r in ("one_device", label))
+    res["ten_steps"] = {
+        "step_ms_median_steps_3_9": float(np.median(ms_mesh[3:10])),
+        "one_device_step_ms_median_steps_3_9": float(np.median(ms_one[3:10])),
+        "parts_ms_median_steps_3_9": {k: 1e3 * float(np.median(v[3:10]))
+                                      for k, v in timers[label].parts.items()},
+        "one_device_parts_ms_median_steps_3_9": {
+            k: 1e3 * float(np.median(v[3:10])) for k, v in timers["one_device"].parts.items()},
+        "launches_per_step": per_mesh[-1], "one_device_launches_per_step": per_one[-1],
+        "launches": {k: v for k, v in counts.items() if v}, "plain_cuda_calls": plain,
+        "history": hist}
+    emit({"phase": "train_mesh", "mesh": label, "run": "ten_steps", **res["ten_steps"],
+          "card": CARD.get("nvidia_smi")})
+    res["fixed_batch"] = _fixed_batch(dev, mesh)
+    res["reload"] = _reload_logits(model, corpus, dev)
+    res["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "train_mesh", "summary": {k: v for k, v in res.items() if k != "ten_steps"}})
+    return res
+
+
 def _lattice_check(pc: torch.Tensor, res: int, quantity: str, dev) -> float:
     """The vis lattice of `quantity` from its kernel against the plain
     version on the card: the tolerance ratio (<= 1 passes)."""
@@ -3277,15 +3494,18 @@ def main(argv) -> int:
     # after every profiled timing: see the docstring's phase 6
     time_plain_greedy_columns(gt180, timing, dev)
     phase_mesh(gt10, gt30, cloud180, hand_out, hand180, lion, launches, dev)
+    trained_mesh = phase_train_mesh(hand10, launches, dev)
     phase_vis(hand10, hand_out, launches, dev)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = timing[name]
         per_step = trained["split"]["launches_per_step"]
+        per_mesh_step = trained_mesh["ten_steps"]["launches_per_step"]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
-                        **({"launches_per_train_step": per_step[name]}
+                        **({"launches_per_train_step": per_step[name],
+                            "launches_per_mesh_train_step": per_mesh_step[name]}
                            if name in per_step else {}),
                         "max_abs_err": max(errs[name], t.get("max_abs_err", 0.0)),
                         "ms": t["ms"],

@@ -27,7 +27,7 @@ from dipole_tpu_torch.models.pointcnn import PointCNN
 from dipole_tpu_torch.ops import fields, propagate
 from dipole_tpu_torch.ops.estimate import estimate_normals
 from dipole_tpu_torch.ops.patching import divide_pc, fix_n_filter
-from dipole_tpu_torch.parallel.sharding import (Mesh, make_mesh,
+from dipole_tpu_torch.parallel.sharding import (Mesh, make_mesh, one_axis,
                                                 orient_points_multichip,
                                                 potential_sharded)
 from dipole_tpu_torch.utils import prng
@@ -64,11 +64,11 @@ def resolve_mesh(mesh, device="cuda"):
     ValueError. A Mesh or a count FORCES the sharded path everywhere;
     'auto' is every card (CPU: make_mesh's default shards) under an
     AutoMesh marker, and each stage then decides (stage_mesh); one card
-    means no mesh."""
+    means no mesh. A two-axis mesh (training's) raises ValueError."""
     if mesh is None:
         return None
     if isinstance(mesh, (Mesh, AutoMesh)):
-        m = mesh.mesh if isinstance(mesh, AutoMesh) else mesh
+        m = one_axis(mesh.mesh if isinstance(mesh, AutoMesh) else mesh)
         return mesh if m.size > 1 else None
     kind = torch.device(device).type
     if isinstance(mesh, str):

@@ -2,7 +2,7 @@
 (reference dipole_api.py:14-136): orient_large with api-flavoured defaults
 (estimate_normals on, the v1 checkpoints pre_trained_tpu/dipole_{0,1,2}.pt
 preloaded, nothing required), plus --device. Writes final_result.xyz and
-opts.txt.
+opts.txt. orient_large_np is the in-memory entry with the same defaults.
 
     python -m dipole_tpu_torch.cli.dipole_api --pc in.xyz --export_dir out/
 """
@@ -22,6 +22,25 @@ DEFAULT_MODELS = [Path(__file__).resolve().parents[2] / "pre_trained_tpu"
 def orient_large(opts):
     """Run the representative-point pipeline (reference dipole_api.py:14-87)."""
     return _orient_large.run(opts)
+
+
+def orient_large_np(points, models=None, device="cuda", **kwargs):
+    """Orient an (N, 3|6) array in memory; returns the oriented (N, 6) array
+    (JAX cli/dipole_api.py:26-43): api.orient_large with this module's
+    defaults (DEFAULT_MODELS, iters 5, number_parts 10,
+    minimum_points_per_patch 100, curvature_threshold 0, estimate_normals
+    on, n 30). It reads those six keyword arguments and, as the JAX
+    wrapper, ignores any other."""
+    from dipole_tpu_torch import api
+
+    return api.orient_large(
+        points, models=models or DEFAULT_MODELS,
+        iters=kwargs.pop("iters", 5),
+        number_parts=kwargs.pop("number_parts", 10),
+        minimum_points_per_patch=kwargs.pop("minimum_points_per_patch", 100),
+        curvature_threshold=kwargs.pop("curvature_threshold", 0.0),
+        estimate=kwargs.pop("estimate_normals", True),
+        n=kwargs.pop("n", 30), device=device)
 
 
 def get_parser():

@@ -39,6 +39,7 @@ from torch import nn
 from dipole_tpu_torch.ops.fields import sqrt_rn
 from dipole_tpu_torch.ops.linalg import eigh3x3
 from dipole_tpu_torch.ops.neighbors import fps_masked_batch, knn_with_dist
+from dipole_tpu_torch.parallel.sharding import one_axis
 from dipole_tpu_torch.utils import prng
 
 __all__ = ["XConv", "PointCNN", "from_numpy_params", "ENCODER", "DECODER",
@@ -384,13 +385,16 @@ def pointcnn_logits_batched(model: PointCNN, patches, key=None, bucket=None,
     parallel.sharding.Mesh; each chunk, mesh.size times as wide, is split
     over its devices, each running a replica of the model (the kNN and FPS
     kernels launch on each shard; every shard is launched before any result
-    is read back). Returns a list of (n_i, 2) float32 numpy arrays."""
+    is read back; a two-axis mesh raises ValueError). Returns a list of
+    (n_i, 2) float32 numpy arrays."""
     patches = [np.asarray(p, np.float32) for p in patches]
     if not patches:
         return []
     dev = device or next(model.parameters()).device
     if precanon:
         mesh = None
+    elif mesh is not None:
+        one_axis(mesh)
     nb = bucket or _bucket(max(len(p) for p in patches))
     m1, _ = _pad_sizes(nb, model.pool)
     if starts is None:

@@ -9,7 +9,10 @@ tests' 8 virtual CPU devices), and a mesh may name one card several times
 sharded code with the real kernels on one card. A mesh holds devices of one
 type; on a CUDA mesh every shard launches the hand-written kernels
 (ops/fields.py's dispatch), never their plain versions, and no shard moves
-to the CPU.
+to the CPU. A mesh has one axis, or two: `make_mesh(4, device="cpu",
+shape=(2, 2))` is a ("data", "model") mesh, training's
+(train.make_train_step); the functions below take one-axis meshes and
+refuse a two-axis one (one_axis).
 
 Layouts, as in the JAX package:
   * target-sharded: each shard holds a slice of the targets and all the
@@ -54,10 +57,16 @@ _SENTINEL = 1.0e6       # pad_cloud_for_ring's position (zero moment)
 
 class Mesh:
     """One process's device mesh: `devices` (a tuple of torch.device, repeats
-    allowed), `size` and `axis_names`. Raises ValueError for an empty list,
-    devices of more than one type, or a card that does not exist."""
+    allowed), `size`, `axis_names` and `shape` ({axis name: length}, JAX's
+    mesh.shape). One axis, named `axis`, by default. shape=(d, m) gives the
+    two axes ("data", "model") with the devices in data-major order, as
+    Mesh(np.array(devs).reshape(d, m), ("data", "model")) in JAX: row(i) is
+    data shard i's m devices, column(j) the d devices that hold model piece
+    j. Raises ValueError for an empty list, devices of more than one type, a
+    card that does not exist, an axis that is not one name, or a shape that
+    does not hold the devices."""
 
-    def __init__(self, devices, axis: str = "data"):
+    def __init__(self, devices, axis: str = "data", shape=None):
         devs = tuple(torch.device(d) for d in devices)
         if not devs:
             raise ValueError("a mesh needs at least one device")
@@ -74,25 +83,49 @@ class Mesh:
                                  "CUDA device(s) are available")
         elif kinds[0] != "cpu":
             raise ValueError(f"unsupported mesh device type {kinds[0]!r}")
+        dims = (len(devs),) if shape is None else tuple(int(s) for s in shape)
+        if not isinstance(axis, str):
+            raise ValueError(f"axis names a one-axis mesh, got {axis!r}; a "
+                             "two-axis mesh's axes are ('data', 'model')")
+        if not 1 <= len(dims) <= 2:
+            raise ValueError(f"a mesh has one or two axes, got shape {dims}")
+        names = (axis,) if len(dims) == 1 else ("data", "model")
+        if min(dims) < 1 or int(np.prod(dims)) != len(devs):
+            raise ValueError(f"mesh shape {dims} does not hold {len(devs)} devices")
         self.devices = devs
         self.size = len(devs)
-        self.axis_names = (axis,)
+        self.axis_names = names
+        self.shape = dict(zip(names, dims))
         self.type = kinds[0]
+        self._cols = dims[1] if len(dims) == 2 else 1
+
+    def row(self, i: int) -> tuple:
+        """The devices of data shard i: one on a one-axis mesh."""
+        return self.devices[i * self._cols:(i + 1) * self._cols]
+
+    def column(self, j: int) -> tuple:
+        """The devices that hold model piece j, one a data shard."""
+        return self.devices[j::self._cols]
 
     def __repr__(self):
-        return f"Mesh({[str(d) for d in self.devices]}, axis={self.axis_names[0]!r})"
+        return (f"Mesh({[str(d) for d in self.devices]}, "
+                f"shape={self.shape})")
 
 
-def make_mesh(n_devices: int | None = None, device="cuda", axis: str = "data") -> Mesh:
-    """The first n_devices cards (default: all), or n CPU shards with
-    device="cpu" (default CPU_SHARDS). Asking for more cards than exist
-    raises ValueError: silently shrinking would fake the validation."""
+def make_mesh(n_devices: int | None = None, device="cuda", axis: str = "data",
+              shape=None) -> Mesh:
+    """The first n_devices cards (default: all, or the product of `shape`),
+    or n CPU shards with device="cpu" (default CPU_SHARDS); `axis` and
+    `shape` as Mesh's. Asking for more cards than exist raises ValueError:
+    silently shrinking would fake the validation."""
     kind = torch.device(device).type
+    if n_devices is None and shape is not None:
+        n_devices = int(np.prod(shape))
     if kind == "cpu":
         n = CPU_SHARDS if n_devices is None else int(n_devices)
         if n < 1:
             raise ValueError(f"a mesh of {n} devices")
-        return Mesh([torch.device("cpu")] * n, axis)
+        return Mesh([torch.device("cpu")] * n, axis, shape)
     if kind != "cuda":
         raise ValueError(f"unsupported mesh device type {kind!r}")
     avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -101,7 +134,17 @@ def make_mesh(n_devices: int | None = None, device="cuda", axis: str = "data") -
         raise ValueError(
             f"requested a {n}-device mesh but only {avail} CUDA device(s) "
             "are available (silently shrinking would fake the validation)")
-    return Mesh([torch.device("cuda", i) for i in range(n)], axis)
+    return Mesh([torch.device("cuda", i) for i in range(n)], axis, shape)
+
+
+def one_axis(mesh: Mesh) -> Mesh:
+    """`mesh`, refused with ValueError when it has two axes: the pipeline's
+    shards are one list of devices, and it does not guess which axis to
+    split (a two-axis mesh is training's, train.make_train_step)."""
+    if len(mesh.axis_names) != 1:
+        raise ValueError(f"{mesh}: the sharded pipeline takes a one-axis mesh, "
+                         f"not axes {mesh.axis_names}")
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +237,7 @@ def field_grad_sharded(sources, targets, mesh: Mesh, eps: float = 1e-5,
     source chunks from (sources, targets), so a shard may sum in another
     order than one call over everything: the result is held to the field's
     tolerance, not to its bits."""
+    one_axis(mesh)
     src = _host(sources, 6)
     tgt = _host(targets, 3)
     if shard == "targets":
@@ -216,6 +260,7 @@ def potential_sharded(sources, targets, mesh: Mesh,
     sign-fix lattice) or "ring" (both sharded: a large target cloud). Each
     shard runs fields.potential (csrc/potential.cu on a card); a target on a
     source is scrubbed to 0 within the shard that holds that source."""
+    one_axis(mesh)
     src = _host(sources, 6)
     tgt = _host(targets, 3)
     if shard == "sources":
@@ -235,6 +280,7 @@ def interaction_accumulate_sharded(pts, signs, mesh: Mesh, eps: float = 1e-5,
     dotted with its normal. shard="ring" keeps O(N / D) of the cloud on a
     shard; "sources" holds all targets on each shard and sums the partial
     fields."""
+    one_axis(mesh)
     pts = _host(pts, 6)
     signed = pts.clone()
     signed[:, 3:6] *= as_f32(signs, pts.device)[:, None]
@@ -262,6 +308,7 @@ def point_group_interaction_sharded(pts, group_ids, num_groups: int,
     rows sit beside it: so the result is bit-equal to the one-device call,
     on the card as on the CPU. source_weights scales every point's moment,
     as a target and as a source (weighted_prop)."""
+    one_axis(mesh)
     pts = _host(pts, 6)
     if source_weights is not None:
         pts = pts.clone()
@@ -328,6 +375,7 @@ def greedy_sign_sequence_sharded(pts, mesh: Mesh, starting_point: int = 0,
     as ops/propagate.greedy_sign_sequence; the column formula is the JAX
     sharded loop's, so acc agrees to rounding (the one-device matrix tier
     reads rows of I instead). Returns (acc, sign) on the host."""
+    one_axis(mesh)
     pts = _host(pts, 6)
     n = pts.shape[0]
     if n <= 1:
@@ -417,6 +465,7 @@ def xie_in_order_sharded(pts, orders, mesh: Mesh, C: float = 3.0,
     ops/propagate.xie_propagation_in_order: the sums are associated per
     shard, so a near-zero interaction may decide otherwise than the
     one-device row sum; compare by agreement."""
+    one_axis(mesh)
     if kernel not in ("xie", "dipole"):
         raise ValueError(f"unknown kernel {kernel!r}")
     pts = _host(pts, 6)

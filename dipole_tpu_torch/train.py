@@ -5,11 +5,14 @@ the consistent orientation, trained on synthetically flipped patches (class
 1 = keep, class 0 = flip, the voting convention of inference_utils.py:47-49)
 or on patches of real clouds with ground-truth normals.
 
-The JAX package jits one SPMD step over a (data, model) mesh; the port trains
-on one device (`mesh` wider than one raises, ROADMAP.md §1 item 4). The
+The JAX package jits one SPMD step over a (data, model) mesh; the port runs
+the same step on a one-process parallel.sharding.Mesh: the batch split over
+the 'data' axis, one replica of the model a data row, and the widest
+weights (_TP_SUFFIXES) split over the 'model' axis on their output
+dimension, each piece on its own device of the row (make_train_step). The
 forward is models/pointcnn.PointCNN, whose kNN and FPS are the CUDA kernels
-on the card; its gradients go through torch autograd over plain ops, as the
-JAX package's go through XLA outside its Pallas kernels. The optimizer is
+on the card, on every shard; its gradients go through torch autograd over
+plain ops, as the JAX package's go through XLA outside its Pallas kernels. The optimizer is
 optax's chain rebuilt by hand (ClipAdamW): clip_by_global_norm(1.0), then
 adamw on a warmup-cosine schedule. Random draws are the JAX package's
 (threefry keys in utils/prng.py), so init_params, make_batch and the FPS
@@ -17,14 +20,18 @@ starts of every step equal the JAX package's for the same seed.
 
     model, history = train(steps=2, batch=2, n_points=128, device="cpu")
     model, history, acc = train_on_clouds(["cloud.xyz"], steps=200)
+    model, history = train(steps=2, batch=4, n_points=64, device="cpu",
+                           mesh=make_mesh(4, device="cpu", shape=(2, 2)))
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from dipole_tpu_torch.device import resolve_device
 from dipole_tpu_torch.models.pointcnn import (PointCNN, _canonicalize, _gather,
@@ -32,6 +39,7 @@ from dipole_tpu_torch.models.pointcnn import (PointCNN, _canonicalize, _gather,
                                               from_numpy_params, key_starts,
                                               pointcnn_logits)
 from dipole_tpu_torch.ops.neighbors import fps_masked_batch, knn_with_dist
+from dipole_tpu_torch.parallel.sharding import Mesh, _psum, make_mesh
 from dipole_tpu_torch.utils import prng
 
 __all__ = ["init_params", "make_batch", "calibrate_init", "loss_fn",
@@ -44,6 +52,10 @@ _STAGES = [("encoder.conv1", 16, 6, 32), ("encoder.conv2", 20, 32, 64),
            ("encoder.conv3", 20, 64, 128), ("encoder.conv4", 20, 128, 256),
            ("decoder.conv1", 20, 256, 128), ("decoder.conv2", 20, 128, 64),
            ("decoder.conv3", 20, 64, 32)]
+
+# leaves split over a mesh's 'model' axis on their output dimension (JAX
+# train.py:36): the X-transform lifts and the stage output projections
+_TP_SUFFIXES = ("mlp2.0.weight", "mlp2.0.bias", "conv.2.weight", "conv.2.bias")
 
 
 def init_params(key) -> dict:
@@ -161,19 +173,12 @@ def calibrate_init(params: dict, probe_pc, pool: float = 0.6,
     return params
 
 
-def loss_fn(model: PointCNN, pc, labels, valid, starts,
-            class_balance: bool = False, gauge_free: bool = False,
-            keep_bias: float = 0.5):
-    """Per-point cross-entropy over the flip classes (JAX train.py:164-227)
-    -> (loss, acc) tensors. pc (B, Nb, 6), labels (B, Nb) integer, valid
-    (B, Nb) bool on the model's device; starts (B, 2) FPS starts
-    (pointcnn.key_starts). Differentiable in the model's parameters.
-
-    class_balance: both label classes get equal mass within each patch (the
-    keep class keep_bias of it, the flip class 1 - keep_bias). gauge_free:
-    each patch takes the smaller CE of its two label gauges (labels and
-    1 - labels, the class masses swapped with them): a patch's orientation
-    is only defined up to one flip, which propagation assigns later."""
+def _loss_terms(model: PointCNN, pc, labels, valid, starts,
+                class_balance: bool, gauge_free: bool, keep_bias: float):
+    """loss_fn's sums over a block of patches: (loss numerator, loss
+    denominator, acc numerator, acc denominator). Blocks add term by term,
+    so the blocks of a batch split over a mesh's data rows give the loss and
+    acc of the whole batch (not a mean of the blocks' means)."""
     starts = torch.as_tensor(starts)
     logits = model(pc, valid, starts[:, 0], starts[:, 1])
     labels = labels.long()
@@ -200,9 +205,34 @@ def loss_fn(model: PointCNN, pc, labels, valid, starts,
             (inv * w_inv).sum(-1) / w_inv.sum(-1).clamp(min=1e-9))
         n = vmask.sum(-1).clamp(min=1.0)
         agree = right.sum(-1) / n
-        return per_patch.mean(), torch.maximum(agree, vmask.sum(-1) / n - agree).mean()
-    loss = (nll * w).sum() / w.sum().clamp(min=1e-9)
-    return loss, right.sum() / vmask.sum().clamp(min=1.0)
+        patches = vmask.new_tensor(float(pc.shape[0]))
+        return (per_patch.sum(), patches,
+                torch.maximum(agree, vmask.sum(-1) / n - agree).sum(), patches)
+    return (nll * w).sum(), w.sum(), right.sum().to(torch.float32), vmask.sum()
+
+
+def _loss_of(num, den, right, count):
+    """(loss, acc) from the summed _loss_terms."""
+    return num / den.clamp(min=1e-9), right / count.clamp(min=1.0)
+
+
+def loss_fn(model: PointCNN, pc, labels, valid, starts,
+            class_balance: bool = False, gauge_free: bool = False,
+            keep_bias: float = 0.5):
+    """Per-point cross-entropy over the flip classes (JAX train.py:164-227)
+    -> (loss, acc) tensors. pc (B, Nb, 6), labels (B, Nb) integer, valid
+    (B, Nb) bool on the model's device; starts (B, 2) FPS starts
+    (pointcnn.key_starts). Differentiable in the model's parameters.
+
+    class_balance: both label classes get equal mass within each patch (the
+    keep class keep_bias of it, the flip class 1 - keep_bias). gauge_free:
+    each patch takes the smaller CE of its two label gauges (labels and
+    1 - labels, the class masses swapped with them), and the loss is the
+    mean over patches: a patch's orientation is only defined up to one
+    flip, which propagation assigns later. Otherwise the loss is
+    sum(nll w) / sum(w) over the whole batch."""
+    return _loss_of(*_loss_terms(model, pc, labels, valid, starts,
+                                 class_balance, gauge_free, keep_bias))
 
 
 def warmup_cosine_schedule(learning_rate: float, total_steps: int):
@@ -242,7 +272,8 @@ class ClipAdamW:
     It differs from torch.optim.AdamW (decay 1e-2, decay applied apart),
     clip_grad_norm_ (divides by norm + 1e-6, always) and LambdaLR (one step
     behind the count). The norm and the clip stay on the device: a step
-    reads nothing back."""
+    reads nothing back. The parameters may lie on several devices (the
+    masters of a mesh step): the global norm counts each tensor once."""
 
     def __init__(self, params, schedule, max_norm: float = 1.0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -265,11 +296,18 @@ class ClipAdamW:
         # zeros, as JAX's gradient of it, so only the decay moves it
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        # the parameters of a mesh's replica live on several devices: their
+        # norms meet on the first, and the scale goes back to each
+        norms = torch._foreach_norm(grads)
+        home = norms[0].device
+        norm = torch.linalg.vector_norm(torch.stack([n.to(home) for n in norms]))
         # optax divides by the norm only when it reaches max_norm
         scale = torch.where(norm < self.max_norm, torch.ones_like(norm),
                             norm / self.max_norm)
-        grads = torch._foreach_div(grads, scale)
+        for dev, idx in _by_device(grads).items():
+            for i, g in zip(idx, torch._foreach_div([grads[i] for i in idx],
+                                                    scale.to(dev))):
+                grads[i] = g
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(self.mu, b1)
         torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - b1))
@@ -288,23 +326,91 @@ class ClipAdamW:
         torch._foreach_add_(self.params, upd)
 
 
-_TRAINING_SLICE = ("training under a mesh (data parallelism and the 'model' "
-                   "axis's tensor sharding, JAX train.py:233-297) is the "
-                   "next slice of the port (ROADMAP.md §1 item 4); train on "
-                   "one device")
+def _by_device(tensors) -> dict:
+    """{device: [indices of the tensors on it]}, in first-seen order."""
+    out: dict = {}
+    for i, t in enumerate(tensors):
+        out.setdefault(t.device, []).append(i)
+    return out
 
 
 def param_sharding(mesh, params: dict) -> dict:
-    """The JAX package shards the widest weights over a 'model' mesh axis
-    (JAX train.py:230-244). The port trains on one device: every parameter
-    whole on it ({name: None}); a mesh of more than one device raises
-    NotImplementedError, naming the training slice (ROADMAP.md §1 item 4)."""
-    from dipole_tpu_torch.api import resolve_mesh
+    """{name: pieces}: the number of pieces each parameter splits into over
+    the mesh's 'model' axis, on its output dimension (dim 0), or 1 for a
+    parameter kept whole — the JAX rule leaf for leaf (JAX
+    train.py:233-244): a leaf ending in one of _TP_SUFFIXES splits when the
+    mesh has a 'model' axis wider than 1 that divides its shape[0]. mesh: a
+    parallel.sharding.Mesh, or None (every parameter whole)."""
+    m = 1 if mesh is None else mesh.shape.get("model", 1)
+    return {k: m if m > 1 and k.endswith(_TP_SUFFIXES) and v.shape[0] % m == 0
+            else 1 for k, v in params.items()}
 
-    # a count resolves on the CPU, so no card is needed to refuse it
-    if resolve_mesh(mesh, "cpu") is not None:
-        raise NotImplementedError(f"mesh={mesh!r}: {_TRAINING_SLICE}")
-    return {k: None for k in params}
+
+def _train_mesh(mesh, dev: torch.device, batch: int | None = None):
+    """The ("data", "model") mesh a training run takes, or None for one
+    device. mesh: a Mesh (one axis is taken as 'data'), a count N (N
+    devices of dev's type as (N, 1), the JAX package's layout) or None:
+    with a batch on the card, every card, the data axis the largest divisor
+    of the batch (JAX train.py:282-287); on the CPU one device. Raises
+    ValueError for a mesh of another device type than dev, and for a data
+    axis that does not divide the batch (as the JAX jit does)."""
+    if mesh is None:
+        if batch is None or dev.type != "cuda":
+            return None
+        d = torch.cuda.device_count()
+        while batch % d:
+            d -= 1
+        mesh = d
+    if isinstance(mesh, (int, np.integer)) and not isinstance(mesh, bool):
+        if mesh == 1:
+            return None
+        mesh = make_mesh(int(mesh), device=dev.type, shape=(int(mesh), 1))
+    if not isinstance(mesh, Mesh):
+        raise ValueError(f"cannot train under mesh={mesh!r}: a Mesh, a device "
+                         "count or None")
+    if mesh.type != dev.type:
+        raise ValueError(f"mesh {mesh} does not run on device {str(dev)!r}")
+    if len(mesh.axis_names) == 1:
+        mesh = Mesh(mesh.devices, shape=(mesh.size, 1))
+    if batch is not None and batch % mesh.shape["data"]:
+        raise ValueError(f"a data axis of {mesh.shape['data']} does not divide "
+                         f"the batch of {batch}")
+    return mesh if mesh.size > 1 else None
+
+
+class _ColumnSplit(nn.Module):
+    """A Linear split over the 'model' axis on its output dimension: piece j
+    (rows [j out/m, (j+1) out/m) of the weight and bias, the parameters
+    weight.j and bias.j) sits on devices[j]. The input goes to each piece's
+    device, each piece computes its output columns, and they are
+    concatenated on the input's device in piece order: the all-gather XLA
+    inserts."""
+
+    def __init__(self, linear: nn.Linear, devices):
+        super().__init__()
+        m = len(devices)
+        self.weight = nn.ParameterList(
+            nn.Parameter(w.detach().to(d, copy=True))
+            for w, d in zip(linear.weight.chunk(m), devices))
+        self.bias = nn.ParameterList(
+            nn.Parameter(b.detach().to(d, copy=True))
+            for b, d in zip(linear.bias.chunk(m), devices))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([F.linear(x.to(w.device), w, b).to(x.device)
+                          for w, b in zip(self.weight, self.bias)], dim=-1)
+
+
+def _row_replica(model: PointCNN, pieces: dict, devices) -> PointCNN:
+    """A copy of `model` for one data row: its whole parameters on
+    devices[0], and each Linear whose weight splits (pieces > 1) swapped for
+    a _ColumnSplit over the row's devices."""
+    rep = copy.deepcopy(model).to(devices[0])
+    for name, mod in list(rep.named_modules()):
+        if isinstance(mod, nn.Linear) and pieces[f"{name}.weight"] > 1:
+            parent, key = name.rsplit(".", 1)
+            rep.get_submodule(parent)[key] = _ColumnSplit(mod, devices)
+    return rep
 
 
 def _no_timer(_label: str):
@@ -314,33 +420,95 @@ def _no_timer(_label: str):
 def make_train_step(model: PointCNN, learning_rate: float = 1e-3,
                     total_steps: int = 2000, class_balance: bool = False,
                     gauge_free: bool = False, keep_bias: float = 0.5,
-                    timer=None):
+                    timer=None, mesh=None):
     """(opt, step) for `model` (JAX train.py:247-275): step(pc, labels,
-    valid, starts) moves the host batch to the model's device, runs loss_fn,
-    its backward and one ClipAdamW update, and returns (loss, acc) tensors of
-    the parameters before the update. Global-norm clipping and warmup-cosine
-    because the XConv composition has sharp curvature (loss spikes of 50x
-    without clipping on single-batch overfits). timer: as the pipelines'
+    valid, starts) moves the host batch to the devices, runs loss_fn, its
+    backward and one ClipAdamW update, and returns (loss, acc) tensors of
+    the parameters before the update; step.gather() returns `model` holding
+    the trained weights, and step.replicas lists the models the step trains
+    (one a data row). Global-norm clipping and warmup-cosine because the
+    XConv composition has sharp curvature (loss spikes of 50x without
+    clipping on single-batch overfits). timer: as the pipelines'
     (api.orient_simple), label -> context manager, wrapped around the
-    "forward", "backward" and "optimizer" parts of each step."""
-    opt = ClipAdamW(model.parameters(),
-                    warmup_cosine_schedule(learning_rate, total_steps))
+    "forward", "backward" and "optimizer" parts of each step.
+
+    mesh: None (one row: `model` itself, trained in place on its device), or
+    a parallel.sharding.Mesh or device count as _train_mesh takes them.
+    Under a mesh of d data rows each row holds a replica of the model (the
+    split leaves of param_sharding as _ColumnSplit pieces over the row's
+    devices, the rest whole on its first device); row 0's parameters are
+    the masters that opt steps. A step splits the batch into d contiguous
+    blocks in row order, as P("data") does (the FPS starts go with their
+    patches), runs each block's forward on its row, sums the loss terms in
+    row order on the mesh's first device (_psum) before the one division,
+    runs one backward, sums each parameter's gradient over the rows in row
+    order onto its master, updates the masters and copies them into the
+    other rows. step.gather() concatenates the masters' pieces into
+    `model`'s parameters, and their last gradients into its .grad, so the
+    model is what one-device training leaves."""
     dev = next(model.parameters()).device
     timer = timer or _no_timer
+    schedule = warmup_cosine_schedule(learning_rate, total_steps)
+    mesh = _train_mesh(mesh, dev)
+    pieces = param_sharding(mesh, dict(model.named_parameters()))
+    if mesh is None:
+        rows, home, firsts, replicas = 1, dev, [dev], [model]
+    else:
+        rows, home = mesh.shape["data"], mesh.devices[0]
+        firsts = [mesh.row(r)[0] for r in range(rows)]
+        replicas = [_row_replica(model, pieces, mesh.row(r)) for r in range(rows)]
+    masters = list(replicas[0].parameters())
+    others = [list(rep.parameters()) for rep in replicas[1:]]
+    opt = ClipAdamW(masters, schedule)
 
     def step(pc, labels, valid, starts):
+        if len(pc) % rows:
+            raise ValueError(f"a data axis of {rows} does not divide the batch "
+                             f"of {len(pc)}")
+        b = len(pc) // rows
         with timer("forward"):
-            loss, acc = loss_fn(model, torch.as_tensor(pc, device=dev),
-                                torch.as_tensor(labels, device=dev),
-                                torch.as_tensor(valid, device=dev), starts,
-                                class_balance, gauge_free, keep_bias)
+            terms = []
+            for r, (rep, d) in enumerate(zip(replicas, firsts)):
+                blk = slice(r * b, (r + 1) * b)
+                terms.append(_loss_terms(
+                    rep, torch.as_tensor(pc[blk], device=d),
+                    torch.as_tensor(labels[blk], device=d),
+                    torch.as_tensor(valid[blk], device=d), starts[blk],
+                    class_balance, gauge_free, keep_bias))
+            loss, acc = _loss_of(*(_psum(list(t), home) for t in zip(*terms)))
         with timer("backward"):
-            opt.zero_grad()
+            for rep in replicas:
+                rep.zero_grad(set_to_none=True)
             loss.backward()
+            read = [i for i, p in enumerate(masters) if p.grad is not None]
+            for params in others:
+                torch._foreach_add_([masters[i].grad for i in read],
+                                    [params[i].grad.to(masters[i].device) for i in read])
         with timer("optimizer"):
             opt.step()
+            with torch.no_grad():
+                for params in others:
+                    torch._foreach_copy_(params, masters)
         return loss.detach(), acc.detach()
 
+    def whole(held: dict, name: str, dev) -> torch.Tensor:
+        if pieces[name] == 1:
+            return held[name].to(dev)
+        return torch.cat([held[f"{name}.{j}"].to(dev) for j in range(pieces[name])])
+
+    @torch.no_grad()
+    def gather() -> PointCNN:
+        if replicas[0] is model:
+            return model
+        held = dict(replicas[0].named_parameters())
+        grads = {k: p.grad for k, p in held.items()}
+        for name, p in model.named_parameters():
+            p.copy_(whole(held, name, p.device))
+            p.grad = None if grads[name if pieces[name] == 1 else f"{name}.0"] is None \
+                else whole(grads, name, p.device)
+        return model
+
+    step.gather, step.replicas = gather, replicas
     return opt, step
 
 
@@ -354,14 +522,18 @@ def train(steps: int = 20, batch: int = 8, n_points: int = 128,
           pool: float = 0.6, mesh=None, seed: int = 0,
           learning_rate: float = 1e-3, verbose: bool = True, device="cuda"):
     """Train a fresh PointCNN on synthetic flips (JAX train.py:278-309);
-    returns (model, history [(loss, acc), ...])."""
+    returns (model, history [(loss, acc), ...]). mesh: a
+    parallel.sharding.Mesh, a device count or None (_train_mesh; on the card
+    None takes every card); the initial calibration runs on one device
+    before the model is sharded, and the model returned is whole."""
     dev = resolve_device(device)
+    mesh = _train_mesh(mesh, dev, batch)
     key = prng.prng_key(seed)
     key, pk = prng.split(key, 2)
     model = _fresh_model(pk, _probe_patch(seed, n_points), pool, dev)
-    param_sharding(mesh, dict(model.named_parameters()))
     m1, _ = _pad_sizes(n_points, pool)
-    _opt, step_fn = make_train_step(model, learning_rate, total_steps=steps)
+    _opt, step_fn = make_train_step(model, learning_rate, total_steps=steps,
+                                    mesh=mesh)
     history = []
     for i in range(steps):
         key, bk, fk = prng.split(key, 3)
@@ -371,7 +543,7 @@ def train(steps: int = 20, batch: int = 8, n_points: int = 128,
         history.append((float(loss), float(acc)))
         if verbose:
             print(f"step {i}: loss {history[-1][0]:.4f} acc {history[-1][1]:.4f}")
-    return model, history
+    return step_fn.gather(), history
 
 
 # ---------------------------------------------------------------------------
@@ -483,8 +655,10 @@ def train_on_clouds(paths, steps: int = 200, batch: int = 8,
     last. eval_paths: held-out clouds scored after training (gauge-free per
     patch when training gauge-free). timer: label -> context manager around
     each step's "assembly" (the host batch and its FPS starts) and the parts
-    make_train_step names."""
+    make_train_step names. mesh: as train's; snapshot_fn, the held-out
+    evaluation and the caller get the whole (gathered) model."""
     dev = resolve_device(device)
+    mesh = _train_mesh(mesh, dev, batch)
     rng = np.random.default_rng(seed)
     data = []
     for p in paths:
@@ -502,12 +676,11 @@ def train_on_clouds(paths, steps: int = 200, batch: int = 8,
     key = prng.prng_key(seed)
     key, pk = prng.split(key, 2)
     model = _fresh_model(pk, data[0][0][:min(len(data[0][0]), bucket)], pool, dev)
-    param_sharding(mesh, dict(model.named_parameters()))
     m1, _ = _pad_sizes(bucket, pool)
     _opt, step_fn = make_train_step(model, learning_rate, total_steps=steps,
                                     class_balance=class_balance,
                                     gauge_free=gauge_free, keep_bias=keep_bias,
-                                    timer=timer)
+                                    timer=timer, mesh=mesh)
     timer = timer or _no_timer
     augment = dict(region_flip=region_flip, point_flip=point_flip,
                    scramble=scramble, region_draws=region_draws,
@@ -524,8 +697,9 @@ def train_on_clouds(paths, steps: int = 200, batch: int = 8,
             print(f"step {i}: loss {history[-1][0]:.4f} acc {history[-1][1]:.4f}")
         if snapshot_fn and snapshot_every and (
                 (i + 1) % snapshot_every == 0 or i == steps - 1):
-            snapshot_fn(i + 1, model)
+            snapshot_fn(i + 1, step_fn.gather())
 
+    model = step_fn.gather()
     eval_acc = None
     if eval_paths:
         correct = total = 0

@@ -4,14 +4,16 @@
 --device is the counterpart of JAX_PLATFORMS: "cuda" (the default) or "cpu".
 --mesh is parsed as in the JAX package and reaches the API's `mesh`: a
 device count (the first N cards; with --device cpu, N CPU shards) or 'auto'
-(api.resolve_mesh)."""
+(api.resolve_mesh). PipelineOptions is the JAX package's dataclass view of
+the defaults, field for field."""
 from __future__ import annotations
 
 import argparse
 import os
+from dataclasses import dataclass, field
 from pathlib import Path
 
-__all__ = ["get_parser", "export_options"]
+__all__ = ["get_parser", "export_options", "PipelineOptions"]
 
 
 def get_parser(name: str = "Base Options") -> argparse.ArgumentParser:
@@ -106,3 +108,32 @@ def export_options(opts) -> None:
     txt = "\n".join(f"{k}: {v}" for k, v in d.items())
     Path(opts.export_dir).mkdir(parents=True, exist_ok=True)
     (Path(opts.export_dir) / "opts.txt").write_text(txt)
+
+
+@dataclass
+class PipelineOptions:
+    """Programmatic options mirroring the CLI defaults (JAX
+    utils/config.py:109-135, field for field)."""
+
+    pc: Path | str = ""
+    export_dir: Path | str = ""
+    models: list = field(default_factory=list)
+    iters: int = 100
+    propagation_iters: int = 10
+    number_parts: int = 15
+    minimum_points_per_patch: int = 21
+    curvature_threshold: float = 0.0
+    diffuse: bool = False
+    weighted_prop: bool = False
+    estimate_normals: bool = False
+    n: int = 30
+    mesh: object = None
+    vote_starts: int = 1
+    fps_starts: str = "rng"
+    vote_margin: float = 0.0
+    fix_models: list = field(default_factory=list)
+    fix_margin: float = 0.25
+    fix_when: str = "last"
+    fix_vote: str = "all"
+    consensus: int = 1
+    vote_seed: int = 1

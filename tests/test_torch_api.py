@@ -159,6 +159,24 @@ def test_config_matches_jax_parser_plus_device():
     assert got == want
 
 
+
+def test_pipeline_options_match_jax_dataclass_and_parser():
+    """PipelineOptions: the JAX dataclass's fields and defaults, and every
+    field the parser has equal to the port's get_parser() default (pc and
+    export_dir are required there; mesh reads DIPOLE_TPU_MESH)."""
+    import dataclasses
+
+    got = dataclasses.asdict(config.PipelineOptions())
+    assert got == dataclasses.asdict(jconfig.PipelineOptions())
+    assert [f.name for f in dataclasses.fields(config.PipelineOptions)] == \
+        [f.name for f in dataclasses.fields(jconfig.PipelineOptions)]
+    parsed = vars(config.get_parser().parse_args(["--pc", "a.xyz", "--export_dir", "b"]))
+    shared = [k for k in got if k in parsed and k not in ("pc", "export_dir", "mesh")]
+    assert {"iters", "propagation_iters", "number_parts", "minimum_points_per_patch",
+            "curvature_threshold", "n"} <= set(shared)
+    for k in shared:
+        assert got[k] == parsed[k], k
+
 def test_host_io_matches_jax_package(tmp_path):
     np.testing.assert_array_equal(io.gen_grid(10), jio.gen_grid(10))
     pc = make_sphere(64, seed=49) * np.float32(3.0)

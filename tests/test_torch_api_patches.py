@@ -83,6 +83,51 @@ def test_model_free_patches_and_options():
     assert sign_agreement(cons, gt) == 1.0
 
 
+
+def test_orient_large_np_has_the_api_defaults(hand, monkeypatch):
+    """dipole_api.orient_large_np hands api.orient_large the arguments its
+    JAX twin (JAX cli/dipole_api.py:26-43) hands the JAX api.orient_large,
+    read from the twin itself by recording both calls: the same defaults,
+    the same overrides, other keyword arguments dropped; each package's own
+    DEFAULT_MODELS, and the port's device. Its output is the port's
+    api.orient_large run with those recorded arguments."""
+    from dipole_tpu.cli import dipole_api as jdipole_api
+
+    pts = hand[::2, :3].copy()
+    calls = {}
+
+    def recorder(tag):
+        def record(points, **kw):
+            assert points is pts
+            calls[tag] = kw
+            return tag
+        return record
+
+    monkeypatch.setattr(japi, "orient_large", recorder("jax"))
+    monkeypatch.setattr(api, "orient_large", recorder("port"))
+    defaults = None
+    for kw in ({}, {"iters": 2, "n": 12, "estimate_normals": False,
+                    "curvature_threshold": 0.5, "mesh": 4, "seed": 3}):
+        assert jdipole_api.orient_large_np(pts, **kw) == "jax"
+        assert dipole_api.orient_large_np(pts, device="cpu", **kw) == "port"
+        want, got = dict(calls["jax"]), dict(calls["port"])
+        assert want.pop("models") == jdipole_api.DEFAULT_MODELS
+        assert got.pop("models") == dipole_api.DEFAULT_MODELS
+        assert got.pop("device") == "cpu"
+        assert got == want
+        defaults = defaults or want
+        assert dipole_api.orient_large_np(pts, models=[CKPT], device="cpu",
+                                          **kw) == "port"
+        assert calls["port"]["models"] == [CKPT]
+    monkeypatch.undo()
+    got = dipole_api.orient_large_np(pts, device="cpu")
+    want = api.orient_large(pts, models=dipole_api.DEFAULT_MODELS,
+                            device="cpu", **defaults)
+    assert got.shape == (1000, 6)
+    np.testing.assert_array_equal(got, want)
+    assert sign_agreement(got, hand[::2]) >= 0.9
+
+
 def test_transfer_orientation_matches_jax():
     ref = make_sphere(400, seed=6)
     tgt = scramble_signs(make_sphere(200, seed=7), seed=8)[0]

@@ -1093,6 +1093,31 @@ def test_train_steps_on_card_take_kernels_only(cuda_device):
     assert not any(neighbors.PLAIN_CUDA_CALLS.values())
 
 
+
+def test_train_steps_on_virtual_mesh_take_kernels_only(cuda_device):
+    """3 steps under a (2, 2) mesh of the one card repeated: each data row's
+    forward launches the kNN and FPS kernels (5 and 2 a forward), never
+    their plain versions, and the gathered model is whole on the card."""
+    from dipole_tpu_torch import train
+    from dipole_tpu_torch.parallel import sharding
+    from dipole_tpu_torch.utils import prng
+
+    mesh = sharding.Mesh([torch.device("cuda", 0)] * 4, shape=(2, 2))
+    model = train._fresh_model(prng.prng_key(0), train._probe_patch(0, 512), 0.6,
+                               cuda_device)
+    _opt, step = train.make_train_step(model, 1e-3, total_steps=3, mesh=mesh)
+    batch = _train_batch()
+    neighbors_cuda.LAUNCHES.update({k: 0 for k in neighbors_cuda.LAUNCHES})
+    neighbors.PLAIN_CUDA_CALLS.update({k: 0 for k in neighbors.PLAIN_CUDA_CALLS})
+    losses = [float(step(*batch)[0]) for _ in range(3)]
+    assert np.isfinite(losses).all()
+    assert neighbors_cuda.LAUNCHES["knn"] == 3 * 2 * 5
+    assert neighbors_cuda.LAUNCHES["fps"] == 3 * 2 * 2
+    assert not any(neighbors.PLAIN_CUDA_CALLS.values())
+    whole = step.gather()
+    assert whole is model and all(p.is_cuda for p in whole.parameters())
+    assert whole.state_dict().keys() == train.init_params(prng.prng_key(0)).keys()
+
 def test_forward_precanon_on_card_matches_cpu(cuda_device):
     """The replay's forward (reference-canonicalized patches, explicit
     starts) on the card against the CPU: the same selections (kNN and FPS

@@ -74,6 +74,41 @@ def test_make_mesh_and_its_refusals(mesh):
         sharding.Mesh([])
 
 
+
+def test_two_axis_mesh_rows_columns_and_refusals():
+    """A ("data", "model") mesh: shape as JAX's mesh.shape, devices in
+    data-major order (row i = data shard i's devices, column j = the devices
+    of model piece j), one device repeated; the sharded pipeline refuses
+    it rather than guess an axis."""
+    devs = [torch.device("cpu")] * 6
+    m = sharding.Mesh(devs, shape=(3, 2))
+    assert m.shape == {"data": 3, "model": 2} and m.axis_names == ("data", "model")
+    assert m.size == 6 and m.type == "cpu"
+    assert [len(m.row(i)) for i in range(3)] == [2, 2, 2]
+    assert [len(m.column(j)) for j in range(2)] == [3, 3]
+    assert sharding.Mesh(devs, shape=(2, 3)).axis_names == ("data", "model")
+    made = sharding.make_mesh(device="cpu", shape=(2, 2))
+    assert made.size == 4 and made.shape == {"data": 2, "model": 2}
+    flat = sharding.make_mesh(3, device="cpu")
+    assert flat.shape == {"data": 3} and flat.row(1) == (CPU,) and flat.column(0) == (CPU,) * 3
+    # the order is data-major: tag each position by a distinct (fake) index
+    order = sharding.Mesh.__new__(sharding.Mesh)
+    order.devices, order._cols = tuple(range(6)), 2
+    assert order.row(1) == (2, 3) and order.column(1) == (1, 3, 5)
+    with pytest.raises(ValueError, match="does not hold"):
+        sharding.Mesh(devs, shape=(4, 2))
+    with pytest.raises(ValueError, match="one-axis mesh"):
+        sharding.Mesh(devs, ("data", "model"), shape=(3, 2))
+    with pytest.raises(ValueError, match="one or two axes"):
+        sharding.Mesh(devs, shape=(3, 2, 1))
+    pts = make_sphere(40, seed=12)
+    with pytest.raises(ValueError, match="one-axis"):
+        sharding.field_grad_sharded(pts, pts, made)
+    with pytest.raises(ValueError, match="one-axis"):
+        sharding.greedy_sign_sequence_sharded(pts, made)
+    with pytest.raises(ValueError, match="one-axis"):
+        api.orient_simple(pts, mesh=made, device="cpu")
+
 @pytest.mark.parametrize("shard,ns,nt,seeds", [
     ("targets", 300, 500, (0, 1)), ("sources", 700, 200, (2, 3)),
     ("ring", 700, 500, (7, 8))])

@@ -234,9 +234,3 @@ def test_digest_follows_the_weights():
     model.load_state_dict(saved)
     assert model.content_digest == before
 
-
-def test_mesh_wider_than_one_device_raises():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        train.train(steps=1, batch=2, n_points=64, device="cpu", mesh=2,
-                    verbose=False)
-    assert train.param_sharding(None, {"a": 0}) == {"a": None}
