@@ -32,7 +32,7 @@ from dipole_tpu_torch.parallel.sharding import (Mesh, make_mesh, one_axis,
                                                 potential_sharded)
 from dipole_tpu_torch.utils import prng
 from dipole_tpu_torch.utils.io import Transform, gen_grid, orient_center_np
-from dipole_tpu_torch.utils.timing import timer_factory
+from dipole_tpu_torch.utils.timing import span, timer_factory
 from dipole_tpu_torch.utils.torch_rng import TorchMT19937
 
 __all__ = ["orient", "orient_simple", "orient_simple_batch", "orient_patches",
@@ -144,31 +144,34 @@ def orient_simple(points, diffuse: bool = False, estimate: bool = False,
     """Per-point strongest-field propagation (reference orient_simple.py:8-34):
     (estimate) -> normalize -> propagate -> lattice sign fix -> denormalize.
     mesh: the greedy's accumulator and the sign fix's sources shard over
-    the mesh's devices (parallel.sharding.orient_points_multichip)."""
-    dev = resolve_device(device)
-    mesh = _mesh_for(mesh, dev)
-    stage_timer = timer or timer_factory()
-    input_pc = np.asarray(points, dtype=np.float32)
+    the mesh's devices (parallel.sharding.orient_points_multichip). A call
+    is one `api.orient_simple` span that opens a request (utils/timing.py):
+    its stages, `transform` and `transform.inverse` beneath it."""
+    with span("api.orient_simple", request=True):
+        dev = resolve_device(device)
+        mesh = _mesh_for(mesh, dev)
+        stage_timer = timer or timer_factory()
+        input_pc = np.asarray(points, dtype=np.float32)
 
-    if estimate or input_pc.shape[1] == 3:
-        with stage_timer("estimate unoriented normals"):
-            input_pc = estimate_normals(input_pc, max_nn=n, device=dev)
+        if estimate or input_pc.shape[1] == 3:
+            with stage_timer("estimate unoriented normals"):
+                input_pc = estimate_normals(input_pc, max_nn=n, device=dev)
 
-    input_pc, transform = Transform.trans(input_pc)
+        with span("transform"):
+            input_pc, transform = Transform.trans(input_pc)
 
-    greedy_mesh = stage_mesh(mesh, "greedy", len(input_pc))
-    if greedy_mesh is not None:
-        with stage_timer("dipole propagation (multichip)"):
-            input_pc = orient_points_multichip(input_pc, greedy_mesh,
-                                               diffuse=diffuse, starting_point=0)
-        return transform.inverse(input_pc)
-
-    with stage_timer("dipole propagation"):
-        input_pc = propagate.strongest_field_propagation_points(
-            input_pc, diffuse=diffuse, starting_point=0, device=dev)
-
-    input_pc = _sign_fix(input_pc, stage_timer, dev)
-    return transform.inverse(input_pc)
+        greedy_mesh = stage_mesh(mesh, "greedy", len(input_pc))
+        if greedy_mesh is not None:
+            with stage_timer("dipole propagation (multichip)"):
+                input_pc = orient_points_multichip(input_pc, greedy_mesh,
+                                                   diffuse=diffuse, starting_point=0)
+        else:
+            with stage_timer("dipole propagation"):
+                input_pc = propagate.strongest_field_propagation_points(
+                    input_pc, diffuse=diffuse, starting_point=0, device=dev)
+            input_pc = _sign_fix(input_pc, stage_timer, dev)
+        with span("transform.inverse"):
+            return transform.inverse(input_pc)
 
 
 def orient_simple_batch(clouds, diffuse: bool = False, estimate: bool = False,

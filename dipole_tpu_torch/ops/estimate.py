@@ -7,6 +7,9 @@ eigendecomposition run on `device` in float32 (TF32 is off package-wide, so
 the covariance matmul is full float32 like the JAX side's
 Precision.HIGHEST). The hybrid criterion (k nearest, then a radius filter)
 mirrors Open3D's KDTreeSearchParamHybrid as the JAX package does.
+`estimate_normals` records its host kNN and its PCA (the gather, the
+eigenvectors, the copy back) as the spans `estimate.knn` and `estimate.pca`
+(utils/timing.py).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from dipole_tpu_torch.ops.fields import sqrt_rn
 from dipole_tpu_torch.ops.linalg import eigh3x3, smallest_eigvec_3x3
 from dipole_tpu_torch.ops.neighbors import knn
 from dipole_tpu_torch.utils.io import orient_center_np
+from dipole_tpu_torch.utils.timing import span
 
 __all__ = ["pca_eigen_values", "rotate_to_principle_components",
            "estimate_normals", "estimate_normals_knn", "orient_center"]
@@ -76,11 +80,13 @@ def estimate_normals(inputpc, max_nn: int = 30, radius: float = 0.1,
     inputpc = np.asarray(inputpc, dtype=np.float32)
     pos = np.ascontiguousarray(inputpc[:, :3])
     k = min(max_nn, len(pos))
-    idx, d2 = native.knn(pos, pos, k)
-    pos_t = torch.as_tensor(pos, device=dev)
-    neigh = pos_t[torch.as_tensor(idx, device=dev)]
-    valid = torch.as_tensor(d2 <= radius * radius, device=dev)
-    normals = masked_pca_normals(neigh, valid).cpu().numpy()
+    with span("estimate.knn"):
+        idx, d2 = native.knn(pos, pos, k)
+    with span("estimate.pca"):
+        pos_t = torch.as_tensor(pos, device=dev)
+        neigh = pos_t[torch.as_tensor(idx, device=dev)]
+        valid = torch.as_tensor(d2 <= radius * radius, device=dev)
+        normals = masked_pca_normals(neigh, valid).cpu().numpy()
     out = np.concatenate([pos, normals.astype(np.float32)], axis=1)
     if keep_orientation and inputpc.shape[1] == 6:
         flip = (inputpc[:, 3:6] * out[:, 3:6]).sum(axis=-1) < 0

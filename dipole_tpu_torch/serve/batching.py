@@ -21,12 +21,12 @@ pads nothing, so clouds of any sizes share a batch.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 
-import numpy as np
-
 from dipole_tpu_torch.device import resolve_device
+from dipole_tpu_torch.utils import timing
 
 __all__ = ["MicroBatcher", "batched_simple_estimate", "batched_tree_xie",
            "MAX_REPLAY_ENTRIES"]
@@ -50,13 +50,15 @@ _REPLAY_HBM_LOCK = threading.Lock()
 
 
 class _Job:
-    __slots__ = ("payload", "result", "error", "event")
+    __slots__ = ("payload", "result", "error", "event", "request", "started_ns")
 
-    def __init__(self, payload):
+    def __init__(self, payload, request=None):
         self.payload = payload
         self.result = None
         self.error = None
         self.event = threading.Event()
+        self.request = request          # the submitting thread's request id
+        self.started_ns = None          # when its batch's runner was handed it
 
 
 class MicroBatcher:
@@ -66,7 +68,15 @@ class MicroBatcher:
     ready. The first thread per signature becomes the leader: it sleeps
     `window_s` to let followers join, then pops up to `max_batch` jobs and
     calls runner([payloads]) -> [results]. Followers just wait. A runner
-    exception is re-raised in every waiting thread."""
+    exception is re-raised in every waiting thread.
+
+    Spans (utils/timing.py): each submission's wait is a `serve.queue` span,
+    from the submit to the moment a leader pops its job for a runner (the
+    leader's window, a follower's wait, or the wait behind an earlier
+    chunk); each runner call is a `serve.core` span on the leader's thread,
+    tagged `batch` (this batcher's count) and `requests` (the submitters'
+    request ids). The batched handlers below end, as the others, in the
+    request's `transform.inverse` span (handlers._unprep)."""
 
     def __init__(self, window_s: float = 0.01, max_batch: int = 8):
         self.window_s = float(window_s)
@@ -75,21 +85,26 @@ class MicroBatcher:
         self._queues: dict = {}
         self.batches_run = 0
         self.jobs_run = 0
+        self._batch_ids = itertools.count()
 
     def submit(self, sig, payload, runner):
-        job = _Job(payload)
-        with self._lock:
-            queue = self._queues.setdefault(sig, [])
-            queue.append(job)
-            leader = len(queue) == 1
+        job = _Job(payload, timing.current_request())
+        with timing.span("serve.queue") as queued:
+            with self._lock:
+                queue = self._queues.setdefault(sig, [])
+                queue.append(job)
+                leader = len(queue) == 1
+            if not leader:
+                job.event.wait()
+            elif self.window_s > 0:
+                time.sleep(self.window_s)
+            # a leader's job is normally popped by its own first chunk, just
+            # after this span; another leader may have popped it already
+            queued.end_ns = job.started_ns
         if not leader:
-            job.event.wait()
             if job.error is not None:
                 raise job.error
             return job.result
-
-        if self.window_s > 0:
-            time.sleep(self.window_s)
         # The leader drains the WHOLE queue in max_batch chunks: followers
         # beyond the first chunk (and any that join while a chunk runs) have
         # no leader of their own and would otherwise wait forever. The
@@ -102,10 +117,17 @@ class MicroBatcher:
                 del queue[: self.max_batch]
                 if not queue:
                     self._queues.pop(sig, None)
+                if jobs:
+                    batch = next(self._batch_ids)
+                    started = time.time_ns()
+                    for j in jobs:
+                        j.started_ns = started
             if not jobs:
                 break
             try:
-                results = runner([j.payload for j in jobs])
+                with timing.span("serve.core", batch=batch,
+                                 requests=[j.request for j in jobs]):
+                    results = runner([j.payload for j in jobs])
                 if len(results) != len(jobs):
                     raise RuntimeError(
                         f"batch runner returned {len(results)} results for "
@@ -187,7 +209,7 @@ def batched_tree_xie(batcher: MicroBatcher, xyz_data, config, device="cuda"):
     (normal estimation, transform, EMST + BFS orders, alignment + vote) stay
     in the calling thread; the sign fixes are batched too."""
     from dipole_tpu_torch.ops import propagate
-    from dipole_tpu_torch.serve.handlers import _prep
+    from dipole_tpu_torch.serve.handlers import _prep, _unprep
 
     dev = resolve_device(device)
     times = int(config["times"])
@@ -204,7 +226,7 @@ def batched_tree_xie(batcher: MicroBatcher, xyz_data, config, device="cuda"):
     mean = batcher.submit(("meanpot", str(dev)), (pc, dev), _mean_potential_batch)
     if mean < 0:
         pc[:, 3:6] *= -1
-    return transform.inverse(pc).astype(np.float64)
+    return _unprep(pc, transform)
 
 
 def batched_simple_estimate(batcher: MicroBatcher, xyz_data, config,
@@ -212,11 +234,11 @@ def batched_simple_estimate(batcher: MicroBatcher, xyz_data, config,
     """simple_estimate with the device stages micro-batched. Host stages
     (normal estimation, transform) stay in the calling thread so they still
     overlap across requests."""
-    from dipole_tpu_torch.serve.handlers import _prep
+    from dipole_tpu_torch.serve.handlers import _prep, _unprep
 
     dev = resolve_device(device)
     pc, transform = _prep(xyz_data, 30, dev)
     diffuse = bool(config.get("diffuse", True))
     sig = ("simple_estimate", diffuse, str(dev))
     oriented = batcher.submit(sig, (pc, diffuse, dev), _simple_core_batch)
-    return transform.inverse(oriented).astype(np.float64)
+    return _unprep(oriented, transform)

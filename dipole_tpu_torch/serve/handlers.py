@@ -24,6 +24,7 @@ from dipole_tpu_torch.device import resolve_device
 from dipole_tpu_torch.ops import fields, propagate
 from dipole_tpu_torch.ops.estimate import estimate_normals
 from dipole_tpu_torch.utils.io import Transform, gen_grid
+from dipole_tpu_torch.utils.timing import span
 
 __all__ = ["HANDLERS", "dispatch", "set_mesh", "get_mesh"]
 
@@ -51,9 +52,19 @@ def _mesh(mesh, dev):
 
 
 def _prep(xyz_data: np.ndarray, max_nn: int, dev):
-    pc = np.asarray(xyz_data, dtype=np.float32)
-    pc = estimate_normals(pc, max_nn=max_nn, device=dev)
-    return Transform.trans(pc)
+    """A request's host stage, the `serve.estimate` span: normals (kNN on
+    the host, PCA on `dev`) and the transform into the unit box."""
+    with span("serve.estimate"):
+        pc = np.asarray(xyz_data, dtype=np.float32)
+        pc = estimate_normals(pc, max_nn=max_nn, device=dev)
+        return Transform.trans(pc)
+
+
+def _unprep(pc: np.ndarray, transform: Transform) -> np.ndarray:
+    """The request's way back out of the unit box, the `transform.inverse`
+    span, after its propagation (batched or not)."""
+    with span("transform.inverse"):
+        return transform.inverse(pc).astype(np.float64)
 
 
 def _finish(pc: np.ndarray, transform: Transform, dev, mesh=None) -> np.ndarray:
@@ -66,7 +77,7 @@ def _finish(pc: np.ndarray, transform: Transform, dev, mesh=None) -> np.ndarray:
         mean = fields.measure_mean_potential(pc, device=dev)
     if mean < 0:
         pc[:, 3:6] *= -1
-    return transform.inverse(pc).astype(np.float64)
+    return _unprep(pc, transform)
 
 
 def simple_estimate(xyz_data, config, device="cuda", mesh=None):
@@ -80,7 +91,7 @@ def simple_estimate(xyz_data, config, device="cuda", mesh=None):
         # propagation and sign fix in one sharded pass (the same decisions)
         pc = orient_points_multichip(pc, m, diffuse=config.get("diffuse", True),
                                      starting_point=0)
-        return transform.inverse(pc).astype(np.float64)
+        return _unprep(pc, transform)
     pc = propagate.strongest_field_propagation_points(
         pc, diffuse=config.get("diffuse", True), starting_point=0, device=dev)
     return _finish(pc, transform, dev, mesh)

@@ -11,6 +11,22 @@ micro-batched into one greedy launch and one replay launch
 "cuda:N", an integer N (cuda:N, the JAX device index's twin) or "cpu";
 scale-out remains one server process per device.
 
+Spans (utils/timing.py's ring, in this process): each connection is a
+request with an id of its own, the `serve.request` span on its handler
+thread, and beneath it `serve.read` (the header and the cloud),
+`serve.admission` (the quota, its poll included), `serve.estimate` (kNN,
+PCA, transform), `serve.queue` (from the micro-batcher's submit until a
+leader hands its job to a runner), `transform.inverse` (after the
+propagation) and `serve.reply`; one `serve.core` span a batch on its
+leader's thread lists the request ids it ran. Warm-up spans carry no request id. Start and
+end are `time.time_ns()`: in a torch.profiler Chrome trace a span starts at
+ts = (start_ns - baseTimeNanoseconds) / 1000 µs, and its record_function
+range is in the trace when the profiler was started with
+`_ExperimentalConfig(profile_all_threads=True)` before the handler thread
+began. `Server.stop()` logs each serve span's count, p50, p95 and max to
+info.log, over the requests still in the ring (the newest 65536 spans).
+`tools/span_closure.py` reports how far a request's spans cover it.
+
     python -m dipole_tpu_torch.serve.server_para --port 12345
     python -m dipole_tpu_torch.serve.server_para --port 12345 --device cpu
 """
@@ -26,6 +42,7 @@ from pathlib import Path
 from dipole_tpu_torch.device import resolve_device
 from dipole_tpu_torch.serve import protocol
 from dipole_tpu_torch.serve.handlers import dispatch
+from dipole_tpu_torch.utils import timing
 
 HOST = "0.0.0.0"
 PORT = 12345
@@ -69,23 +86,24 @@ class AdmissionControl:
         self._mtx = threading.Lock()
 
     def acquire(self, n_points: int) -> None:
-        need = n_points * n_points
-        if need > self.max_pts:
-            msg = (f"job exceeds the quadratic-memory quota: needs {need} "
-                   f"pair units, cap is {self.max_pts} — rejected")
-            log_msg(msg, mode="error", log_dir=self.log_dir)
-            raise ValueError(msg)
-        warned = False
-        while True:
-            with self._mtx:
-                if need <= self.res_pts:
-                    self.res_pts -= need
-                    return
-            if not warned:
-                print(f"quota full ({self.res_pts} of {self.max_pts} pair "
-                      f"units free, job needs {need}); queuing")
-                warned = True
-            time.sleep(self.poll_s)
+        with timing.span("serve.admission"):
+            need = n_points * n_points
+            if need > self.max_pts:
+                msg = (f"job exceeds the quadratic-memory quota: needs {need} "
+                       f"pair units, cap is {self.max_pts} — rejected")
+                log_msg(msg, mode="error", log_dir=self.log_dir)
+                raise ValueError(msg)
+            warned = False
+            while True:
+                with self._mtx:
+                    if need <= self.res_pts:
+                        self.res_pts -= need
+                        return
+                if not warned:
+                    print(f"quota full ({self.res_pts} of {self.max_pts} pair "
+                          f"units free, job needs {need}); queuing")
+                    warned = True
+                time.sleep(self.poll_s)
 
     def release(self, n_points: int) -> None:
         with self._mtx:
@@ -104,6 +122,7 @@ class Server:
         self.device = resolve_device(parse_device(device))
         self.admission = admission or AdmissionControl(log_dir=log_dir)
         self._stop = threading.Event()
+        self._since_ns = time.time_ns()
         self.batcher = None
         if microbatch:
             from dipole_tpu_torch.serve.batching import MicroBatcher
@@ -114,11 +133,12 @@ class Server:
         log_msg(msg, mode=mode, log_dir=self.log_dir)
 
     def handle_client(self, conn: socket.socket, addr) -> None:
-        with conn:
+        with conn, timing.span("serve.request", request=True):
             print(f"client connected: {addr}")
             acquired = 0
             try:
-                req, xyz = protocol.read_request(conn)
+                with timing.span("serve.read"):
+                    req, xyz = protocol.read_request(conn)
                 print(req)
                 self.admission.acquire(len(xyz))
                 acquired = len(xyz)
@@ -126,11 +146,13 @@ class Server:
                                   req.get("function_config", {}),
                                   log=self._log, batcher=self.batcher,
                                   device=self.device)
-                protocol.send_result(conn, result)
+                with timing.span("serve.reply"):
+                    protocol.send_result(conn, result)
             except Exception as e:  # noqa: BLE001
                 print(f"Error: {e}")
                 self._log(f"Error: {e}", mode="error")
-                protocol.send_error(conn)
+                with timing.span("serve.reply"):
+                    protocol.send_error(conn)
             finally:
                 if acquired:
                     self.admission.release(acquired)
@@ -162,7 +184,43 @@ class Server:
                 f"{b.batches_run} batches "
                 f"({b.jobs_run / max(b.batches_run, 1):.2f} jobs/batch)",
                 mode="info")
+        for line in _span_lines(timing.spans(), self._since_ns):
+            self._log(line, mode="info")
         self._stop.set()
+
+
+SERVE_SPANS = ("serve.request", "serve.read", "serve.admission",
+               "serve.estimate", "serve.queue", "serve.core",
+               "transform.inverse", "serve.reply")
+
+
+def _span_lines(spans, since_ns: int) -> list:
+    """The spans of the requests whose `serve.request` started at or after
+    `since_ns`: a line that says how many requests and since when, then one
+    per serve span name with count, p50, p95 and max in ms (`serve.core`
+    once a batch). The ring keeps only the newest timing.SPAN_RING spans;
+    where it is full, the first line says that older ones may be gone."""
+    import numpy as np
+
+    ids = {s.request for s in spans
+           if s.name == "serve.request" and s.start_ns >= since_ns}
+    ms = {name: [] for name in SERVE_SPANS}
+    oldest = None
+    for s in spans:
+        if s.name in ms and s.request in ids:
+            ms[s.name].append((s.end_ns - s.start_ns) * 1e-6)
+            oldest = s.start_ns if oldest is None else min(oldest, s.start_ns)
+    if not ids:
+        return []
+    since = time.strftime("%Y-%m-%d %H:%M:%S", time.localtime(oldest * 1e-9))
+    head = f"spans of {len(ids)} requests, the oldest span counted at {since}"
+    if len(spans) >= timing.SPAN_RING:
+        head += (f"; the span ring is full ({timing.SPAN_RING} spans), so older "
+                 "requests may be gone and these figures cover the newest only")
+    return [head] + [
+        f"span {name}: {len(v)} p50 {np.percentile(v, 50):.2f} ms "
+        f"p95 {np.percentile(v, 95):.2f} ms max {max(v):.2f} ms"
+        for name, v in ms.items() if v]
 
 
 def warmup(sizes, functions=("simple_estimate", "tree_xie_propagation"),
