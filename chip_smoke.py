@@ -7,7 +7,7 @@ kernel of those paths against its plain torch version.
 
 Phases, one JSON line each:
   1. device     name, count, nvidia-smi name and power limit; no CUDA -> fail
-  2. build      nvcc of the nine dipole_tpu_torch/csrc/*.cu for sm_90a, and
+  2. build      nvcc of the ten dipole_tpu_torch/csrc/*.cu for sm_90a, and
                 of field_mma.cu's one-pass control; seconds, ptxas registers
                 and spills
   3. checks     each kernel against its plain version on the card:
@@ -61,6 +61,12 @@ Phases, one JSON line each:
                 orders shorter than N and orders over seven indices:
                 identical decisions, recorded interactions within 1e-6 of
                 sum |I w|;
+                normal estimation's search (csrc/radius_knn.cu) at the main
+                path's 180000 and 10000 points (k 30, radius 0.1) and on a
+                lattice with exact ties at every slot, duplicates, a flat
+                cloud, a line, equal points, a far outlier, one point,
+                fewer points than k and radii that hold only the point or
+                every point, for k = 1, 8, 16, 30, 33 and 64, bit-equal;
                 the batched column greedy (the server's micro-batch) at
                 B = 1, 2, 3 and 8, mixed sizes from one block to 30000
                 points, the tie clouds beside others, and a batch cut into
@@ -89,7 +95,8 @@ Phases, one JSON line each:
                 3-column ellipsoid (normal estimation + column tier); launch
                 counts reset just before each run and read just after; GT sign
                 agreement >= 0.99; each path kernel launched, no plain version
-                called on a CUDA tensor; a 2000-point cloud gives the same
+                called on a CUDA tensor, the 180k run's one estimate on the
+                card route (estimate.ROUTES); a 2000-point cloud gives the same
                 signs on the card as on the CPU. Then the patch pipelines
                 with the v1 checkpoints pre_trained_tpu/dipole_{0,1,2}.pt:
                 api.orient_patches on a 10000-point metaball hand at the hand
@@ -149,7 +156,9 @@ Phases, one JSON line each:
                 and both tensor-core kernels, their rel max diff and sign
                 agreement; each kernel launched, no plain version called
   5. timing     CUDA-event times of each kernel and its plain version at the
-                main path's shapes, the bound of each; there the imatrix
+                main path's shapes, the bound of each (radius_knn at 180000
+                and 10000 points, its search kernel also by the profiler,
+                torch.cdist + torch.topk its yardstick); there the imatrix
                 (10k) and the greedy (10k rows, 180k columns on the full
                 grid) are held bit-equal to their plain versions too. The
                 potential (1000 x 180k) and the imatrix (10k, and in its
@@ -334,10 +343,14 @@ KERNELS = {
                                "dipole_tpu/ops/propagate.py:213"),
     "replay_batched": ("dipole_tpu_torch/csrc/replay.cu",
                        "dipole_tpu/ops/propagate.py:861"),
+    "radius_knn": ("dipole_tpu_torch/csrc/radius_knn.cu",
+                   "none: dipole_tpu/ops/estimate.py's host KD-tree search"),
 }
 # the profiler's name of the dipole matrix's kernel
 IMATRIX_KERNEL = "DipolePair"
-LIBRARY_CALLS = {"knn": "torch.topk(d2, k, largest=False) on the precomputed d2"}
+LIBRARY_CALLS = {"knn": "torch.topk(d2, k, largest=False) on the precomputed d2",
+                 "radius_knn": "torch.cdist + torch.topk(k, largest=False) in query "
+                               "chunks of 4096, no radius mask"}
 
 # metaball shapes (tools/make_shape.py's lion and a fixed hand): F = sum
 # r^2/|x-c|^2, the surface F = iso, the GT normal -grad F
@@ -993,6 +1006,7 @@ def _read_counts():
 
 def phase_main_path(gt10: np.ndarray, gt180: np.ndarray) -> dict:
     from dipole_tpu_torch import api
+    from dipole_tpu_torch.ops import estimate
     from dipole_tpu_torch.ops.metrics import sign_agreement
     from dipole_tpu_torch.utils.timing import timer_factory
 
@@ -1000,25 +1014,28 @@ def phase_main_path(gt10: np.ndarray, gt180: np.ndarray) -> dict:
         ("10k_6col_diffuse", scramble(gt10, SEED + 1), gt10, True,
          ("dipole_imatrix", "greedy_rows", "dipole_potential")),
         ("180k_3col", gt180[:, :3].copy(), gt180, False,
-         ("greedy_columns", "dipole_potential")),
+         ("radius_knn", "greedy_columns", "dipole_potential")),
     ]
     launches = {}
     for label, inp, gt, diffuse, path_kernels in runs:
         timer = timer_factory()
         torch.cuda.synchronize()
         _reset_counts()
+        estimate.ROUTES.update(card=0, host=0)
         t0 = time.perf_counter()
         out = api.orient_simple(inp, diffuse=diffuse, timer=timer, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, plain = _read_counts()
+        routes = dict(estimate.ROUTES)
         RUN_COUNTS[label] = counts
         agree = sign_agreement(out, gt)
         outward = float(((out[:, 3:6] * gt[:, 3:6]).sum(1) > 0).mean())
         emit({"phase": "main_path", "run": label, "n": len(inp),
               "seconds": wall, "stages": timer.stages,
               "gt_sign_agreement": agree, "outward_fraction": outward,
-              "launches": counts, "plain_cuda_calls": plain})
+              "launches": counts, "plain_cuda_calls": plain,
+              "estimate_routes": routes})
         require(out.shape == (len(inp), 6) and bool(np.isfinite(out).all()),
                 f"{label}: bad output")
         require(np.allclose(out[:, :3], gt[:, :3], atol=1e-4),
@@ -1029,6 +1046,9 @@ def phase_main_path(gt10: np.ndarray, gt180: np.ndarray) -> dict:
             launches[name] = launches.get(name, 0) + counts[name]
         require(not any(plain.values()),
                 f"{label}: plain version called on CUDA: {plain}")
+        want_routes = {"card": int(inp.shape[1] == 3), "host": 0}
+        require(routes == want_routes,
+                f"{label}: estimate routes {routes}, expected {want_routes}")
 
     # the card against the CPU path on a small input
     small = scramble(gt10[:2000], SEED + 2)
@@ -1038,6 +1058,91 @@ def phase_main_path(gt10: np.ndarray, gt180: np.ndarray) -> dict:
     emit({"phase": "main_path", "run": "2k_card_vs_cpu", "same_sign": same})
     require(same == 1.0, f"card and CPU disagree on {1 - same:.6f} of signs")
     return launches
+
+
+def _radius_cases(gt10: np.ndarray, gt180: np.ndarray, r) -> list:
+    """(label, positions, k values, radius) of csrc/radius_knn.cu's checks:
+    the main path's two sizes (k 30, radius 0.1), then clouds its grid must
+    survive at each list size (K = 8, 16, 32, 64 and k across them): a
+    lattice at a spacing of 1/32 (exact ties at every slot), exact
+    duplicates, a flat cloud, a line, every point equal, a far outlier, one
+    point, fewer points than k, radii that hold only the point or all."""
+    small = ellipsoid(3000, SEED + 181)[:, :3]
+    g = np.arange(12, dtype=np.float32) / 32
+    lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    dup = small.copy()
+    dup[2000:] = dup[:1000]
+    flat = small.copy()
+    flat[:, 2] = 0.0
+    line = np.zeros((3000, 3), np.float32)
+    line[:, 0] = r.uniform(-1.0, 1.0, 3000)
+    outlier = small.copy()
+    outlier[1234] = (1.0e4, 0.0, 0.0)
+    ks = (1, 8, 16, 30, 33, 64)
+    return [("ellipsoid 180000", gt180[:, :3], (30,), 0.1),
+            ("ellipsoid 10000", gt10[:, :3], (30,), 0.1),
+            ("ellipsoid 3000", small, ks, 0.1),
+            ("lattice ties", lattice[r.permutation(len(lattice))], ks, 0.1),
+            ("duplicates", dup, ks, 0.1), ("flat", flat, ks, 0.1),
+            ("line", line, ks, 0.1),
+            ("all equal", np.full((500, 3), 0.3, np.float32), ks, 0.1),
+            ("far outlier", outlier, ks, 0.1),
+            ("one point", np.float32([[0.25, -0.5, 0.125]]), (1, 30), 0.1),
+            ("fewer points than k", small[:20] * 0.05, (30, 64), 0.1),
+            ("radius holds only self", small, (30,), 1e-4),
+            ("radius holds every point", small[:2000], (30, 64), 10.0)]
+
+
+def phase_checks_radius(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
+    """Normal estimation's search (csrc/radius_knn.cu) bit-equal to its
+    plain version (ops/neighbors_cuda.radius_knn_plain) on each case of
+    _radius_cases."""
+    from dipole_tpu_torch.ops import neighbors_cuda
+
+    err = 0.0
+    for label, pos, ks, radius in _radius_cases(gt10, gt180,
+                                                np.random.default_rng(SEED + 18)):
+        pos = torch.as_tensor(np.ascontiguousarray(pos), device=dev)
+        for k in ks:
+            err = max(err, _equal("radius_knn", neighbors_cuda.radius_knn(pos, k, radius),
+                                  neighbors_cuda.radius_knn_plain(pos, k, radius),
+                                  case=label, n=len(pos), k=k, radius=radius))
+    return {"radius_knn": err}
+
+
+def _cdist_topk(pos: torch.Tensor, k: int):
+    """The yardstick: torch.cdist and torch.topk in query chunks of 4096."""
+    return [torch.topk(torch.cdist(pos[lo:lo + 4096], pos), k, largest=False)
+            for lo in range(0, len(pos), 4096)]
+
+
+def time_radius_knn(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
+    """csrc/radius_knn.cu at the main path's shapes (a batch call's 180000
+    points and a served request's 10000; k 30, radius 0.1): its time by
+    events (the bucketing, the sort and the search) and the search kernel's
+    by the profiler, its plain version's, the yardstick's, and its bound:
+    the positions read once and the lists written once, against N k
+    distances."""
+    from dipole_tpu_torch.ops import neighbors_cuda as nc
+
+    res = {}
+    for label, gt in (("180k", gt180), ("10k", gt10)):
+        pos = torch.as_tensor(np.ascontiguousarray(gt[:, :3]), device=dev)
+        n, k = len(pos), 30
+        b = bound_ms(12 * n + 8 * n * k, OPS_KNN * n * k)
+        plain_ms, want = timed(lambda: nc.radius_knn_plain(pos, k, 0.1))
+        res[label] = dict(
+            shape=f"{n} points, k {k}, radius 0.1",
+            max_abs_err=_equal("radius_knn", nc.radius_knn(pos, k, 0.1), want, n=n,
+                               k=k, main_path_shape=True),
+            ms=cuda_ms(lambda: nc.radius_knn(pos, k, 0.1), 20, 2),
+            search_profiler_ms=profiled_ms(lambda: nc.radius_knn(pos, k, 0.1),
+                                           "radius_knn_search", 10),
+            plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+            library_ms=cuda_ms(lambda: _cdist_topk(pos, k), 3, 1))
+        del want
+    emit({"phase": "timing", "kernel": "radius_knn", "results": res, **CARD})
+    return {**res["180k"], "other_shapes": {"10k": res["10k"]}}
 
 
 def phase_timing(gt10: np.ndarray, gt180: np.ndarray, dev) -> dict:
@@ -3467,6 +3572,7 @@ def main(argv) -> int:
     errs = phase_checks(cloud180, gt10)
     errs.update(phase_checks_patch(dev))
     errs.update(phase_checks_xie(gt10, dev))
+    errs.update(phase_checks_radius(gt10, gt180, dev))
     mxu_errs, mxu_plain_ms = phase_checks_mxu(dev)
     errs.update(mxu_errs)
     if checks_only:
@@ -3486,6 +3592,7 @@ def main(argv) -> int:
     phase_torch_rng(hand10, launches, dev)
     tool = phase_main_path_mxu(launches)
     timing = phase_timing(gt10, gt180, dev)
+    timing["radius_knn"] = time_radius_knn(gt10, gt180, dev)
     timing.update(phase_timing_patches(hand_out, hand180, lion, dev))
     timing.update(phase_timing_xie(gt10, gt30, dev))
     timing.update(phase_timing_mxu(tool, mxu_plain_ms, dev))

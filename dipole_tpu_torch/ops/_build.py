@@ -42,7 +42,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("potential", "imatrix", "greedy", "field", "group", "knn", "fps",
-           "replay", "field_mma")
+           "replay", "field_mma", "radius_knn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 _NVCC_TIMEOUT_S = 600

@@ -1,15 +1,23 @@
 """PCA utilities and unoriented normal estimation — the port of
 dipole_tpu/ops/estimate.py:27-138.
 
-Neighbour search runs on the native host KD-tree (the same library the JAX
-package calls); the masked covariance and the closed-form 3x3
-eigendecomposition run on `device` in float32 (TF32 is off package-wide, so
-the covariance matmul is full float32 like the JAX side's
-Precision.HIGHEST). The hybrid criterion (k nearest, then a radius filter)
-mirrors Open3D's KDTreeSearchParamHybrid as the JAX package does.
-`estimate_normals` records its host kNN and its PCA (the gather, the
-eigenvectors, the copy back) as the spans `estimate.knn` and `estimate.pca`
-(utils/timing.py).
+The hybrid criterion (k nearest, then a radius filter) mirrors Open3D's
+KDTreeSearchParamHybrid as the JAX package does. `estimate_normals` takes
+one of two routes for its neighbour search, chosen from what it is given and
+counted in ROUTES:
+  - "card": a CUDA device and 0 < k <= neighbors_cuda.RADIUS_MAX_K. The
+    kernel csrc/radius_knn.cu searches the cloud on the card, and the PCA
+    gathers from its answers where they lie;
+  - "host": any other device or k. The native host KD-tree (the library the
+    JAX package calls, which the CPU tests hold the port to), its answers
+    then copied to the device.
+Both give the same in-radius neighbourhoods, up to ties of d2 within an ulp
+(the host library may contract d2 into FMAs). The masked covariance and the
+closed-form 3x3 eigendecomposition run on `device` in float32 (TF32 is off
+package-wide, so the covariance matmul is full float32 like the JAX side's
+Precision.HIGHEST). `estimate_normals` records its search and its PCA (the
+gather, the eigenvectors, the copy back) as the spans `estimate.knn` and
+`estimate.pca` (utils/timing.py).
 """
 from __future__ import annotations
 
@@ -18,14 +26,18 @@ import torch
 
 from dipole_tpu_torch import native
 from dipole_tpu_torch.device import resolve_device
+from dipole_tpu_torch.ops import _build, neighbors_cuda
 from dipole_tpu_torch.ops.fields import sqrt_rn
 from dipole_tpu_torch.ops.linalg import eigh3x3, smallest_eigvec_3x3
 from dipole_tpu_torch.ops.neighbors import knn
 from dipole_tpu_torch.utils.io import orient_center_np
 from dipole_tpu_torch.utils.timing import span
 
-__all__ = ["pca_eigen_values", "rotate_to_principle_components",
-           "estimate_normals", "estimate_normals_knn", "orient_center"]
+__all__ = ["pca_eigen_values", "rotate_to_principle_components", "search_route",
+           "estimate_normals", "estimate_normals_knn", "orient_center", "ROUTES"]
+
+# estimate_normals calls by the route of their neighbour search
+ROUTES = {"card": 0, "host": 0}
 
 
 def pca_eigen_values(x):
@@ -70,6 +82,13 @@ def masked_pca_normals(neigh: torch.Tensor, valid: torch.Tensor) -> torch.Tensor
     return smallest_eigvec_3x3(cov)
 
 
+def search_route(dev: torch.device, k: int) -> str:
+    """"card" where csrc/radius_knn.cu takes the search (a CUDA device, 0 <
+    k <= its longest list), else "host"."""
+    return ("card" if dev.type == "cuda" and 0 < k <= neighbors_cuda.RADIUS_MAX_K
+            else "host")
+
+
 def estimate_normals(inputpc, max_nn: int = 30, radius: float = 0.1,
                      keep_orientation: bool = False,
                      device="cuda") -> np.ndarray:
@@ -80,13 +99,22 @@ def estimate_normals(inputpc, max_nn: int = 30, radius: float = 0.1,
     inputpc = np.asarray(inputpc, dtype=np.float32)
     pos = np.ascontiguousarray(inputpc[:, :3])
     k = min(max_nn, len(pos))
+    r2 = neighbors_cuda.radius_sq(radius)
+    route = search_route(dev, k)
+    _build.bump(ROUTES, route)
     with span("estimate.knn"):
-        idx, d2 = native.knn(pos, pos, k)
+        if route == "card":
+            pos_t = torch.as_tensor(pos, device=dev)
+            idx, d2 = neighbors_cuda.radius_knn(pos_t, k, radius)
+        else:
+            idx, d2 = native.knn(pos, pos, k)
     with span("estimate.pca"):
-        pos_t = torch.as_tensor(pos, device=dev)
-        neigh = pos_t[torch.as_tensor(idx, device=dev)]
-        valid = torch.as_tensor(d2 <= radius * radius, device=dev)
-        normals = masked_pca_normals(neigh, valid).cpu().numpy()
+        if route == "host":
+            pos_t = torch.as_tensor(pos, device=dev)
+            idx = torch.as_tensor(idx, device=dev)
+            d2 = torch.as_tensor(d2, device=dev)
+        neigh = pos_t[idx]
+        normals = masked_pca_normals(neigh, d2 <= r2).cpu().numpy()
     out = np.concatenate([pos, normals.astype(np.float32)], axis=1)
     if keep_orientation and inputpc.shape[1] == 6:
         flip = (inputpc[:, 3:6] * out[:, 3:6]).sum(axis=-1) < 0

@@ -36,7 +36,7 @@ __all__ = ["knn_with_dist", "knn_with_dist_plain", "fps_masked_batch",
            "fps_masked_batch_plain", "PLAIN_CUDA_CALLS", "knn", "knn_graph",
            "fps", "knn_interpolate"]
 
-PLAIN_CUDA_CALLS = {"knn": 0, "fps": 0}
+PLAIN_CUDA_CALLS = {"knn": 0, "fps": 0, "radius_knn": 0}
 _QUERY_ELEMS = 1 << 24   # query block x base: the d2 block of one knn step
 
 
@@ -140,7 +140,7 @@ def knn(base, query, k: int, device="cuda"):
         dd = _sq_dist(query[lo:lo + block, None, :], base[None, :, :])
         d, i = torch.sort(dd, dim=1, stable=True)
         idx.append(i[:, :k].to(torch.int32))
-        d2.append(d[:, :k])
+        d2.append(d[:, :k].clone())   # not a view that keeps the block alive
     if not idx:
         return (torch.zeros((0, k), dtype=torch.int32, device=base.device),
                 torch.zeros((0, k), device=base.device))

@@ -52,8 +52,9 @@ def _mesh(mesh, dev):
 
 
 def _prep(xyz_data: np.ndarray, max_nn: int, dev):
-    """A request's host stage, the `serve.estimate` span: normals (kNN on
-    the host, PCA on `dev`) and the transform into the unit box."""
+    """A request's host stage, the `serve.estimate` span: normals (the
+    neighbour search and the PCA on `dev`; ops/estimate.py) and the
+    transform into the unit box."""
     with span("serve.estimate"):
         pc = np.asarray(xyz_data, dtype=np.float32)
         pc = estimate_normals(pc, max_nn=max_nn, device=dev)

@@ -225,7 +225,7 @@ def _span_lines(spans, since_ns: int) -> list:
 
 def warmup(sizes, functions=("simple_estimate", "tree_xie_propagation"),
            log_dir: str = ".", microbatch: bool = True, device="cuda"):
-    """Warm the server up before it serves: on the card, build the nine
+    """Warm the server up before it serves: on the card, build the ten
     kernel libraries of csrc/ (nvcc, seconds; an unwarmed server bills the
     first client the build), then run each function once per size and, with
     micro-batching, its batched cores at B = 1, 2, 4 and 8, so that the

@@ -8,8 +8,10 @@ from dipole_tpu import native as jnative
 from dipole_tpu.ops import estimate as jest
 from dipole_tpu.ops import linalg as jlinalg
 from dipole_tpu_torch import native
-from dipole_tpu_torch.ops import estimate, linalg
+from dipole_tpu_torch.ops import estimate, linalg, neighbors_cuda
 from tests.conftest import make_sphere
+from neighbour_clouds import (CLOUDS, assert_sorted_and_padded, cloud,
+                              differing_rows_are_ties)
 
 
 def _spd(n, seed):
@@ -130,3 +132,84 @@ def test_native_pca_normals_matches_masked_pca():
         assert row.max() <= 5e-3 and np.median(row) <= 1e-4, (row.max(), np.median(row))
     with pytest.raises(ValueError):
         native.pca_normals(pos, idx, d2[:, :5], 0.01)
+
+
+def _host_hybrid(pos, k, radius):
+    """The host route's neighbourhoods: native.knn, then the radius filter
+    (outside: index 0, +inf), padded to k columns where k > N."""
+    idx, d2 = native.knn(pos, pos, k)
+    inside = d2 <= neighbors_cuda.radius_sq(radius)
+    pad = ((0, 0), (0, k - idx.shape[1]))
+    return (np.pad(np.where(inside, idx, 0), pad),
+            np.pad(np.where(inside, d2, np.inf).astype(np.float32), pad,
+                   constant_values=np.inf))
+
+
+def _dense_definition(pos, k, radius):
+    """radius_knn's function written out in numpy: float32 d2 as dx*dx +
+    dy*dy + dz*dz (dx = query - point), each row's pairs in (d2, index)
+    order by a stable sort, the first k kept, those past the radius (and
+    columns past N) read (index 0, +inf)."""
+    d = pos[:, None, :] - pos[None, :, :]
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    order = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    dk = np.take_along_axis(d2, order, axis=1)
+    inside = dk <= np.float32(neighbors_cuda.radius_sq(radius))
+    pad = ((0, 0), (0, k - order.shape[1]))
+    return (np.pad(np.where(inside, order, 0), pad).astype(np.int32),
+            np.pad(np.where(inside, dk, np.inf), pad,
+                   constant_values=np.inf).astype(np.float32))
+
+
+@pytest.mark.parametrize("k", [10, 30, 64])
+@pytest.mark.parametrize("name", CLOUDS)
+def test_radius_knn_plain_matches_host_search(name, k):
+    """The card kernel's plain version: exactly its definition (the dense
+    numpy scan), and against the host route (native.knn, then the radius
+    filter) the same in-radius neighbourhoods up to ties of d2 within a few
+    ulps (the host library contracts d2 into FMAs, and among exactly equal
+    d2 its heap need not keep the lower index)."""
+    pos = cloud(name)
+    idx, d2 = (x.numpy() for x in
+               neighbors_cuda.radius_knn_plain(torch.as_tensor(pos), k, 0.1))
+    assert idx.shape == d2.shape == (len(pos), k)
+    assert idx.dtype == np.int32 and d2.dtype == np.float32
+    assert_sorted_and_padded(idx, d2)
+    want_idx, want_d2 = _dense_definition(pos, k, 0.1)
+    np.testing.assert_array_equal(idx, want_idx)
+    np.testing.assert_array_equal(d2, want_d2)
+    differing_rows_are_ties(pos, (idx, d2), _host_hybrid(pos, k, 0.1),
+                            neighbors_cuda.radius_sq(0.1))
+    self_found = (idx == np.arange(len(pos))[:, None]) & (d2 == 0)
+    assert (d2[:, 0] == 0).all() and self_found.any(axis=1).all()
+    if name == "far outlier":
+        assert idx[700, 0] == 700 and np.isinf(d2[700, 1:]).all()
+
+
+@pytest.mark.parametrize("dev,k,route", [("cuda", 30, "card"), ("cuda", 64, "card"),
+                                         ("cuda", 65, "host"), ("cuda", 0, "host"),
+                                         ("cpu", 30, "host")])
+def test_search_route_by_device_and_k(dev, k, route):
+    assert estimate.search_route(torch.device(dev), k) == route
+
+
+def test_estimate_normals_counts_its_route_on_the_cpu():
+    before = dict(estimate.ROUTES)
+    estimate.estimate_normals(cloud("sphere"), device="cpu")
+    assert estimate.ROUTES == {"card": before["card"], "host": before["host"] + 1}
+
+
+def test_card_route_with_the_plain_search_matches_the_host_route(monkeypatch):
+    """The card route's glue (its search's int32 indices and +inf slots,
+    gathered and masked where they lie) on the CPU, with the kernel's plain
+    version in the kernel's place: the host route's normals within 1e-5 up
+    to sign, on the benchmark's ellipsoid where the radius binds."""
+    pos = cloud("ellipsoid")
+    want = estimate.estimate_normals(pos, device="cpu")
+    monkeypatch.setattr(estimate, "search_route", lambda dev, k: "card")
+    monkeypatch.setattr(neighbors_cuda, "radius_knn", neighbors_cuda.radius_knn_plain)
+    before = dict(estimate.ROUTES)
+    got = estimate.estimate_normals(pos, device="cpu")
+    assert estimate.ROUTES["card"] == before["card"] + 1
+    np.testing.assert_array_equal(got[:, :3], want[:, :3])
+    _assert_equal_up_to_row_sign(got[:, 3:], want[:, 3:], 1e-5)

@@ -24,6 +24,8 @@ from dipole_tpu_torch.ops import (estimate, fields, fields_cuda, neighbors,
                                   neighbors_cuda, propagate, propagate_cuda)
 from dipole_tpu_torch.tools import mxu_field_experiment as mxu
 from dipole_tpu_torch.utils.io import gen_grid
+from neighbour_clouds import (CLOUDS, assert_sorted_and_padded, cloud,
+                              differing_rows_are_ties, ellipsoid)
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = str(ROOT / "pre_trained_tpu" / "dipole_0.pt")
@@ -248,13 +250,100 @@ def test_main_path_takes_kernels_only(cuda_device):
     assert not any(propagate.PLAIN_CUDA_CALLS.values())
 
 
-def test_estimate_normals_on_card_matches_cpu(cuda_device):
-    pos = sphere(3000, 7)[:, :3] * 0.4
+def _host_search(pos, k, radius):
+    """The host route's neighbourhoods: native.knn, then the radius filter
+    (outside: index 0, +inf)."""
+    from dipole_tpu_torch import native
+
+    idx, d2 = native.knn(pos, pos, k)
+    inside = d2 <= neighbors_cuda.radius_sq(radius)
+    return np.where(inside, idx, 0), np.where(inside, d2, np.inf)
+
+
+@pytest.mark.parametrize("n", [3000, 10000, 180000])
+def test_estimate_normals_on_card_matches_cpu(cuda_device, n):
+    """The card route (csrc/radius_knn.cu) against the host route (the
+    KD-tree) on a 3000-point sphere and on the benchmark's ellipsoid at
+    10000 and 180000 points: the same in-radius neighbourhoods up to ties of
+    d2 within a few ulps, and where they are the same, normals within 1e-5
+    up to the sign of each row. The call is counted on the card route and
+    launches the kernel, no plain version."""
+    pos = sphere(3000, 7)[:, :3] * 0.4 if n == 3000 else ellipsoid(n, n)
+    for counts in (estimate.ROUTES, neighbors_cuda.LAUNCHES, neighbors.PLAIN_CUDA_CALLS):
+        counts.update({k: 0 for k in counts})
     got = estimate.estimate_normals(pos, device=cuda_device)
+    assert estimate.ROUTES == {"card": 1, "host": 0}
+    assert neighbors_cuda.LAUNCHES["radius_knn"] == 1
+    assert not any(neighbors.PLAIN_CUDA_CALLS.values())
     want = estimate.estimate_normals(pos, device="cpu")
+    card = [x.cpu().numpy() for x in neighbors_cuda.radius_knn(
+        torch.as_tensor(pos, device=cuda_device), 30, 0.1)]
+    tied = differing_rows_are_ties(pos, card, _host_search(pos, 30, 0.1),
+                                   neighbors_cuda.radius_sq(0.1))
+    same = np.ones(n, bool)
+    same[tied] = False
     d = np.minimum(np.abs(got[:, 3:] - want[:, 3:]).max(1),
                    np.abs(got[:, 3:] + want[:, 3:]).max(1))
-    assert d.max() <= 1e-5                     # up to the sign of each row
+    assert d[same].max() <= 1e-5                # up to the sign of each row
+    np.testing.assert_array_equal(got[:, :3], want[:, :3])
+
+
+def _radius_cloud(name):
+    """(positions, radius) of a case of the radius search: each cloud of
+    tests/neighbour_clouds.py, and shapes the grid must survive: a flat
+    cloud (one cell thick), points on a line, every point equal, and radii
+    that hold only the point itself or every point."""
+    r = np.random.default_rng(len(name))
+    if name in CLOUDS:
+        return cloud(name), 0.1
+    if name == "flat":
+        pos = ellipsoid(5000, 9)
+        pos[:, 2] = 0.0
+    elif name == "line":
+        pos = np.zeros((3000, 3), np.float32)
+        pos[:, 0] = r.uniform(-1.0, 1.0, 3000)
+    elif name == "all equal":
+        pos = np.full((500, 3), 0.3, np.float32)
+    elif name == "only self":
+        return ellipsoid(5000, 10), 1e-4
+    elif name == "every point":
+        return ellipsoid(2000, 11), 10.0
+    return pos, 0.1
+
+
+@pytest.mark.parametrize("k", [1, 10, 16, 30, 33, 64])
+@pytest.mark.parametrize("name", [*CLOUDS, "flat", "line", "all equal", "only self",
+                                  "every point"])
+def test_radius_knn_kernel_is_bit_equal(cuda_device, name, k):
+    pos, radius = _radius_cloud(name)
+    pos = torch.as_tensor(pos, device=cuda_device)
+    got = neighbors_cuda.radius_knn(pos, k, radius)
+    want = neighbors_cuda.radius_knn_plain(pos, k, radius)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert_sorted_and_padded(got[0].cpu().numpy(), got[1].cpu().numpy())
+
+
+@pytest.mark.parametrize("n", [10000, 180000])
+def test_radius_knn_kernel_is_bit_equal_at_the_main_path_sizes(cuda_device, n):
+    """The benchmark's two sizes: a served request's 10000 points and a
+    batch call's 180000, k = 30, radius 0.1."""
+    pos = torch.as_tensor(ellipsoid(n, n + 1), device=cuda_device)
+    got = neighbors_cuda.radius_knn(pos, 30, 0.1)
+    want = neighbors_cuda.radius_knn_plain(pos, 30, 0.1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_radius_knn_wrapper_checks_its_inputs(cuda_device):
+    pos = torch.as_tensor(ellipsoid(100, 12), device=cuda_device)
+    for k in (0, neighbors_cuda.RADIUS_MAX_K + 1):
+        with pytest.raises(ValueError, match="k must be"):
+            neighbors_cuda.radius_knn(pos, k, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        neighbors_cuda.radius_knn(pos.cpu(), 30, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        neighbors_cuda.radius_knn(pos[:, :2].contiguous(), 30, 0.1)
+    idx, d2 = neighbors_cuda.radius_knn(pos[:0], 30, 0.1)
+    assert idx.shape == d2.shape == (0, 30)
 
 
 def test_public_neighbour_names_run_numpy_on_the_card(cuda_device):
