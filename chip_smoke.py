@@ -96,8 +96,13 @@ Phases, one JSON line each:
                 counts reset just before each run and read just after; GT sign
                 agreement >= 0.99; each path kernel launched, no plain version
                 called on a CUDA tensor, the 180k run's one estimate on the
-                card route (estimate.ROUTES); a 2000-point cloud gives the same
-                signs on the card as on the CPU. Then the patch pipelines
+                card route (estimate.ROUTES), each call on orient_simple's
+                card route (api.ORIENT_SIMPLE_ROUTES); the 180k call's
+                host<->card copies under torch.profiler: one upload of the
+                positions and one copy back of the answer, apart from copies
+                of at most 64 bytes (the centre, the mean potential); a
+                2000-point cloud gives the same signs on the card as on the
+                CPU. Then the patch pipelines
                 with the v1 checkpoints pre_trained_tpu/dipole_{0,1,2}.pt:
                 api.orient_patches on a 10000-point metaball hand at the hand
                 demo's flags (demos/hand.sh), api.orient_large on a
@@ -1022,12 +1027,14 @@ def phase_main_path(gt10: np.ndarray, gt180: np.ndarray) -> dict:
         torch.cuda.synchronize()
         _reset_counts()
         estimate.ROUTES.update(card=0, host=0)
+        api.ORIENT_SIMPLE_ROUTES.update(card=0, host=0)
         t0 = time.perf_counter()
         out = api.orient_simple(inp, diffuse=diffuse, timer=timer, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, plain = _read_counts()
         routes = dict(estimate.ROUTES)
+        simple_routes = dict(api.ORIENT_SIMPLE_ROUTES)
         RUN_COUNTS[label] = counts
         agree = sign_agreement(out, gt)
         outward = float(((out[:, 3:6] * gt[:, 3:6]).sum(1) > 0).mean())
@@ -1035,7 +1042,7 @@ def phase_main_path(gt10: np.ndarray, gt180: np.ndarray) -> dict:
               "seconds": wall, "stages": timer.stages,
               "gt_sign_agreement": agree, "outward_fraction": outward,
               "launches": counts, "plain_cuda_calls": plain,
-              "estimate_routes": routes})
+              "estimate_routes": routes, "orient_simple_routes": simple_routes})
         require(out.shape == (len(inp), 6) and bool(np.isfinite(out).all()),
                 f"{label}: bad output")
         require(np.allclose(out[:, :3], gt[:, :3], atol=1e-4),
@@ -1049,6 +1056,18 @@ def phase_main_path(gt10: np.ndarray, gt180: np.ndarray) -> dict:
         want_routes = {"card": int(inp.shape[1] == 3), "host": 0}
         require(routes == want_routes,
                 f"{label}: estimate routes {routes}, expected {want_routes}")
+        require(simple_routes == {"card": 1, "host": 0},
+                f"{label}: orient_simple routes {simple_routes}, expected the card's")
+
+    # the 180k call's copies between host and card
+    inp = gt180[:, :3].copy()
+    copies = host_card_copies(lambda: api.orient_simple(inp, device="cuda"))
+    big = {d: [b for b in copies[d] if b > SCALAR_COPY_BYTES] for d in ("HtoD", "DtoH")}
+    emit({"phase": "main_path", "run": "180k_3col_copies", "copies_bytes": copies,
+          "scalar_copy_bytes": SCALAR_COPY_BYTES})
+    require(big == {"HtoD": [inp.nbytes], "DtoH": [2 * inp.nbytes]},
+            f"180k_3col: copies above {SCALAR_COPY_BYTES} bytes {big}, expected one "
+            f"upload of {inp.nbytes} and one copy back of {2 * inp.nbytes}")
 
     # the card against the CPU path on a small input
     small = scramble(gt10[:2000], SEED + 2)
@@ -1652,6 +1671,36 @@ def _knn_forward_shapes(pos1, valid, nb, pool, m1, lens, dev):
                 bound_ms=b[0], bound_by=b[1],
                 launches_per_lion_call=RUN_COUNTS["lion180k_orient_large"]["fps"] / 2)
     return out, fps2
+
+
+SCALAR_COPY_BYTES = 64   # a copy of at most this many bytes reads or sends scalars
+
+
+def host_card_copies(fn) -> dict:
+    """The bytes of each host<->card copy of one call of fn, in order, by
+    direction ("HtoD", "DtoH"), from torch.profiler's trace (its gpu_memcpy
+    events), after one warm-up call."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    copies = {"HtoD": [], "DtoH": [], "other": []}
+    for e in sorted((e for e in events if e.get("cat") == "gpu_memcpy"),
+                    key=lambda e: e["ts"]):
+        kind = next((d for d in ("HtoD", "DtoH") if d in e["name"]), "other")
+        copies[kind].append(int(e["args"]["bytes"]))
+    require(copies["HtoD"] or copies["DtoH"],
+            "profiler: the trace holds no host<->card copy")
+    return copies
 
 
 def profiled_ms(fn, name, reps: int) -> float:

@@ -24,22 +24,28 @@ from dipole_tpu_torch.device import resolve_device
 from dipole_tpu_torch.models.inference import (ensemble_vote_patches,
                                                load_model_from_file)
 from dipole_tpu_torch.models.pointcnn import PointCNN
-from dipole_tpu_torch.ops import fields, propagate
-from dipole_tpu_torch.ops.estimate import estimate_normals
+from dipole_tpu_torch.ops import _build, fields, propagate
+from dipole_tpu_torch.ops.estimate import estimate_normals, estimate_normals_tensor
 from dipole_tpu_torch.ops.patching import divide_pc, fix_n_filter
 from dipole_tpu_torch.parallel.sharding import (Mesh, make_mesh, one_axis,
                                                 orient_points_multichip,
                                                 potential_sharded)
 from dipole_tpu_torch.utils import prng
-from dipole_tpu_torch.utils.io import Transform, gen_grid, orient_center_np
+from dipole_tpu_torch.utils.io import (Transform, TensorTransform, gen_grid,
+                                      orient_center_np)
 from dipole_tpu_torch.utils.timing import span, timer_factory
 from dipole_tpu_torch.utils.torch_rng import TorchMT19937
 
 __all__ = ["orient", "orient_simple", "orient_simple_batch", "orient_patches",
            "orient_patches_consensus", "orient_large", "transfer_orientation",
-           "resolve_mesh", "stage_mesh", "AutoMesh", "MAX_PATCH_SIZE"]
+           "resolve_mesh", "stage_mesh", "AutoMesh", "MAX_PATCH_SIZE",
+           "ORIENT_SIMPLE_ROUTES"]
 
 MAX_PATCH_SIZE = 500  # representatives per patch (reference orient_large.py:14)
+
+# orient_simple calls by route: "card" keeps the cloud on the card between
+# the stages, "host" passes numpy between them
+ORIENT_SIMPLE_ROUTES = {"card": 0, "host": 0}
 
 
 class AutoMesh:
@@ -143,15 +149,24 @@ def orient_simple(points, diffuse: bool = False, estimate: bool = False,
                   device="cuda") -> np.ndarray:
     """Per-point strongest-field propagation (reference orient_simple.py:8-34):
     (estimate) -> normalize -> propagate -> lattice sign fix -> denormalize.
-    mesh: the greedy's accumulator and the sign fix's sources shard over
-    the mesh's devices (parallel.sharding.orient_points_multichip). A call
-    is one `api.orient_simple` span that opens a request (utils/timing.py):
-    its stages, `transform` and `transform.inverse` beneath it."""
+    On a CUDA device with no mesh the cloud stays on the card from the
+    upload of the positions to the copy back of the answer (the "card"
+    route, _orient_simple_card); elsewhere each stage takes and gives numpy
+    (the "host" route). Both give the same bits; ORIENT_SIMPLE_ROUTES counts
+    the calls of each. mesh: the greedy's accumulator and the sign fix's
+    sources shard over the mesh's devices
+    (parallel.sharding.orient_points_multichip). A call is one
+    `api.orient_simple` span that opens a request (utils/timing.py): its
+    stages, `transform` and `transform.inverse` beneath it."""
     with span("api.orient_simple", request=True):
         dev = resolve_device(device)
         mesh = _mesh_for(mesh, dev)
         stage_timer = timer or timer_factory()
         input_pc = np.asarray(points, dtype=np.float32)
+        route = "card" if dev.type == "cuda" and mesh is None else "host"
+        _build.bump(ORIENT_SIMPLE_ROUTES, route)
+        if route == "card":
+            return _orient_simple_card(input_pc, diffuse, estimate, n, stage_timer, dev)
 
         if estimate or input_pc.shape[1] == 3:
             with stage_timer("estimate unoriented normals"):
@@ -172,6 +187,33 @@ def orient_simple(points, diffuse: bool = False, estimate: bool = False,
             input_pc = _sign_fix(input_pc, stage_timer, dev)
         with span("transform.inverse"):
             return transform.inverse(input_pc)
+
+
+def _orient_simple_card(input_pc: np.ndarray, diffuse: bool, estimate: bool, n: int,
+                        stage_timer, dev: torch.device) -> np.ndarray:
+    """orient_simple's stages on one (N, >=6) float32 tensor on the card:
+    one upload (the positions, or the whole cloud given with normals), one
+    copy back (the answer), and between them only the centre's upload and
+    the sign fix's read of the mean potential. The centre is numpy's mean
+    of the host positions (utils/io.TensorTransform). Each stage computes
+    what the host route's does, bit for bit, under the host route's stage
+    and span names."""
+    if estimate or input_pc.shape[1] == 3:
+        with stage_timer("estimate unoriented normals"):
+            pos = np.ascontiguousarray(input_pc[:, :3])
+            pc = estimate_normals_tensor(pos, max_nn=n, device=dev)
+    else:
+        pos = input_pc
+        pc = torch.as_tensor(np.ascontiguousarray(input_pc), device=dev)
+    with span("transform"):
+        transform = TensorTransform(pos, pc)
+        pc = transform.apply(pc)
+    with stage_timer("dipole propagation"):
+        pc = propagate.strongest_field_propagation_points(
+            pc, diffuse=diffuse, starting_point=0, device=dev)
+    pc = _sign_fix(pc, stage_timer, dev)
+    with span("transform.inverse"):
+        return transform.inverse(pc).cpu().numpy()
 
 
 def orient_simple_batch(clouds, diffuse: bool = False, estimate: bool = False,

@@ -15,8 +15,10 @@ Both give the same in-radius neighbourhoods, up to ties of d2 within an ulp
 (the host library may contract d2 into FMAs). The masked covariance and the
 closed-form 3x3 eigendecomposition run on `device` in float32 (TF32 is off
 package-wide, so the covariance matmul is full float32 like the JAX side's
-Precision.HIGHEST). `estimate_normals` records its search and its PCA (the
-gather, the eigenvectors, the copy back) as the spans `estimate.knn` and
+Precision.HIGHEST). `estimate_normals_tensor` leaves the (N, 6) cloud on
+`device`; `estimate_normals` copies it back as numpy. Both record the search
+and the PCA (the gather, the eigenvectors, the concatenation and, for
+`estimate_normals`, the copy back) as the spans `estimate.knn` and
 `estimate.pca` (utils/timing.py).
 """
 from __future__ import annotations
@@ -34,7 +36,8 @@ from dipole_tpu_torch.utils.io import orient_center_np
 from dipole_tpu_torch.utils.timing import span
 
 __all__ = ["pca_eigen_values", "rotate_to_principle_components", "search_route",
-           "estimate_normals", "estimate_normals_knn", "orient_center", "ROUTES"]
+           "estimate_normals", "estimate_normals_tensor", "estimate_normals_knn",
+           "orient_center", "ROUTES"]
 
 # estimate_normals calls by the route of their neighbour search
 ROUTES = {"card": 0, "host": 0}
@@ -94,9 +97,27 @@ def estimate_normals(inputpc, max_nn: int = 30, radius: float = 0.1,
                      device="cuda") -> np.ndarray:
     """Unoriented PCA normals with Open3D's hybrid search criterion: up to
     max_nn nearest neighbours (self included) within `radius` (reference
-    util.py:551-567). Returns (N, 6) numpy float32."""
-    dev = resolve_device(device)
+    util.py:551-567). Returns (N, 6) numpy float32: estimate_normals_tensor's
+    cloud, copied back inside the `estimate.pca` span."""
     inputpc = np.asarray(inputpc, dtype=np.float32)
+    out = _estimate(inputpc, max_nn, radius, device, to_host=True)
+    if keep_orientation and inputpc.shape[1] == 6:
+        flip = (inputpc[:, 3:6] * out[:, 3:6]).sum(axis=-1) < 0
+        out[flip, 3:6] *= -1
+    return out
+
+
+def estimate_normals_tensor(inputpc, max_nn: int = 30, radius: float = 0.1,
+                            device="cuda") -> torch.Tensor:
+    """estimate_normals' (N, 6) float32 cloud left on `device`: the positions
+    and their normals, concatenated where they were computed. Queues the
+    device's work and returns without waiting for it."""
+    return _estimate(np.asarray(inputpc, dtype=np.float32), max_nn, radius, device,
+                     to_host=False)
+
+
+def _estimate(inputpc: np.ndarray, max_nn: int, radius: float, device, to_host: bool):
+    dev = resolve_device(device)
     pos = np.ascontiguousarray(inputpc[:, :3])
     k = min(max_nn, len(pos))
     r2 = neighbors_cuda.radius_sq(radius)
@@ -114,12 +135,8 @@ def estimate_normals(inputpc, max_nn: int = 30, radius: float = 0.1,
             idx = torch.as_tensor(idx, device=dev)
             d2 = torch.as_tensor(d2, device=dev)
         neigh = pos_t[idx]
-        normals = masked_pca_normals(neigh, d2 <= r2).cpu().numpy()
-    out = np.concatenate([pos, normals.astype(np.float32)], axis=1)
-    if keep_orientation and inputpc.shape[1] == 6:
-        flip = (inputpc[:, 3:6] * out[:, 3:6]).sum(axis=-1) < 0
-        out[flip, 3:6] *= -1
-    return out
+        out = torch.cat([pos_t, masked_pca_normals(neigh, d2 <= r2)], dim=1)
+        return out.cpu().numpy() if to_host else out
 
 
 def estimate_normals_knn(inputpc, max_nn: int = 30, device="cuda") -> np.ndarray:

@@ -30,6 +30,8 @@ another order), and every square root correctly rounded (`sqrt_rn`).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -102,13 +104,19 @@ def potential(sources: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return fields_cuda.potential(src, tgt)
 
 
+@functools.lru_cache(maxsize=None)
+def _lattice(dev: torch.device) -> torch.Tensor:
+    """The sign fix's 10^3 lattice (gen_grid(10)) on `dev`, uploaded once a
+    device; never written."""
+    return torch.as_tensor(gen_grid(10), device=dev)
+
+
 def measure_mean_potential(pc, device="cuda") -> float:
     """Mean dipole potential over the 10^3 lattice (reference
     field_utils.py:7-9 + util.gen_grid util.py:26-36). Callers flip all
     normals when this is negative."""
     dev = resolve_device(device)
-    grid = torch.as_tensor(gen_grid(10), device=dev)
-    return float(torch.mean(potential(as_f32(pc, dev), grid)))
+    return float(torch.mean(potential(as_f32(pc, dev), _lattice(dev))))
 
 
 def measure_mean_potential_batched(pcs, device="cuda") -> np.ndarray:
@@ -121,7 +129,7 @@ def measure_mean_potential_batched(pcs, device="cuda") -> np.ndarray:
     dev = resolve_device(device)
     if not len(pcs):
         return np.zeros((0,), np.float32)
-    grid = torch.as_tensor(gen_grid(10), device=dev)
+    grid = _lattice(dev)
     return torch.stack([torch.mean(potential(as_f32(pc, dev), grid))
                         for pc in pcs]).cpu().numpy()
 

@@ -223,18 +223,21 @@ def orient_clouds_batched(pcs, diffuse: bool = False, device="cuda") -> list:
 def strongest_field_propagation_points(pts, diffuse: bool = False,
                                        starting_point: int = 0,
                                        eps: float = 1e-6,
-                                       device="cuda") -> np.ndarray:
+                                       device="cuda") -> np.ndarray | torch.Tensor:
     """Per-point strongest-field propagation (reference
-    field_utils.py:353-388). Returns a new oriented (N, 6) numpy array."""
-    pts = np.asarray(pts, dtype=np.float32)
-    acc, sign = greedy_sign_sequence(pts, starting_point, eps, device=device)
-    acc = acc.cpu().numpy()
-    sign = sign.cpu().numpy()
+    field_utils.py:353-388). Returns a new oriented (N, 6) array on
+    `device`, where the diffuse re-vote and the flips run: a tensor for a
+    tensor in; for numpy in, that tensor copied back as numpy."""
+    if not isinstance(pts, torch.Tensor):
+        return strongest_field_propagation_points(
+            as_f32(pts, resolve_device(device)), diffuse, starting_point, eps,
+            device).cpu().numpy()
+    pts = as_f32(pts, resolve_device(device))
+    acc, sign = greedy_sign_sequence(pts, starting_point, eps, device=pts.device)
     if diffuse:
         # interactions against current normals: acc_i * sign_i; keep if > 0
-        vote = np.where(acc * sign > 0, 1.0, -1.0).astype(np.float32)
-        sign = sign * vote
-    out = pts.copy()
+        sign = torch.where(acc * sign > 0, sign, -sign)
+    out = pts.clone()
     out[:, 3:6] *= sign[:, None]
     return out
 

@@ -23,9 +23,11 @@ from dipole_tpu_torch import api
 from dipole_tpu_torch.ops import (estimate, fields, fields_cuda, neighbors,
                                   neighbors_cuda, propagate, propagate_cuda)
 from dipole_tpu_torch.tools import mxu_field_experiment as mxu
-from dipole_tpu_torch.utils.io import gen_grid
+from dipole_tpu_torch.utils.io import Transform, gen_grid
+from dipole_tpu_torch.utils.timing import timer_factory
 from neighbour_clouds import (CLOUDS, assert_sorted_and_padded, cloud,
                               differing_rows_are_ties, ellipsoid)
+from test_torch_card_route import host_propagation
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = str(ROOT / "pre_trained_tpu" / "dipole_0.pt")
@@ -382,6 +384,63 @@ def test_orient_simple_on_card_matches_cpu(cuda_device, cols):
     # 6 columns: the same matrix bits, the same decisions; 3 columns: the
     # PCA normals may differ in the last bits between devices
     assert same == 1.0 if cols == 6 else same >= 0.999
+
+
+def _host_staged(pc, diffuse, estimate_normals, dev):
+    """orient_simple's stages with numpy between them (the host route, as
+    orient_simple ran them on the card before its card route; the
+    propagation as its numpy formula), and the mean potential the sign fix
+    read."""
+    if estimate_normals or pc.shape[1] == 3:
+        pc = estimate.estimate_normals(pc, device=dev)
+    pc, transform = Transform.trans(pc)
+    pc = host_propagation(pc, diffuse, dev)
+    mean = fields.measure_mean_potential(pc, device=dev)
+    return transform.inverse(api._sign_fix(pc, timer_factory(), dev)), mean
+
+
+def _card_route_cloud(case):
+    """(cloud, whether the sign fix flips it) of a card-route case: a
+    scrambled sphere with normals (its first point's normal outward or
+    inward, which decides the sign fix), the benchmark's ellipsoid as
+    positions, or every point equal."""
+    n = 12000 if "column tier" in case else 3000
+    if "zero extent" in case:
+        pc = np.tile(np.float32([[0.3, -0.2, 0.1, 0.0, 0.6, 0.8]]), (64, 1))
+    elif "3 columns" in case:
+        pc = ellipsoid(n, n + 5)
+    else:
+        pc = sphere(n, n + 6)
+        pc[0, 3:] = pc[0, :3] * (-1.0 if "flipped" in case else 1.0)
+    if "3 columns" in case:
+        pc = pc[:, :3].copy()
+    return pc, "flipped" in case
+
+
+@pytest.mark.parametrize("diffuse", [False, True])
+@pytest.mark.parametrize("case", ["6 columns", "6 columns flipped", "3 columns",
+                                  "6 columns column tier", "6 columns column tier flipped",
+                                  "3 columns column tier", "zero extent",
+                                  "zero extent 3 columns", "estimate on 6 columns",
+                                  "estimate on 6 columns column tier"])
+def test_orient_simple_card_route_is_bit_identical_to_host_staged(cuda_device, case,
+                                                                  diffuse):
+    """orient_simple's card route (one upload, one copy back) against its
+    stages run with numpy between them on the same card: the same bits, on
+    both greedy tiers (3000 <= MATRIX_LIMIT < 12000 points), with and
+    without the diffuse re-vote, where the sign fix flips the cloud, where
+    every point is the same, and where normals are given but estimated
+    anew. The call is counted on the card route."""
+    pc, flipped = _card_route_cloud(case)
+    est = case.startswith("estimate")
+    api.ORIENT_SIMPLE_ROUTES.update(card=0, host=0)
+    got = api.orient_simple(pc, diffuse=diffuse, estimate=est, device=cuda_device)
+    assert api.ORIENT_SIMPLE_ROUTES == {"card": 1, "host": 0}
+    want, mean = _host_staged(pc, diffuse, est, cuda_device)
+    assert got.dtype == np.float32 and got.shape == (len(pc), 6)
+    np.testing.assert_array_equal(got, want)
+    if case.startswith("6 columns"):
+        assert (mean < 0) == flipped
 
 
 # (1, 1) and (32, 700): one chunk, one launch; (505, 499): a graph_dipole
